@@ -5,8 +5,9 @@ flags, so a command line written for the JAX experiment scripts parses here. Two
 differences:
 
 * ``--train-use-pallas`` defaults to true: the port's aggregation runs in
-  its hand-written CUDA kernel unless asked otherwise (the JAX default on a
-  TPU, the hybrid decomposition, is not ported yet).
+  its hand-written CUDA kernel unless asked otherwise. The hybrid
+  decomposition runs with an integer ``--train-hybrid-k``; the default
+  'auto-tpu' means off here, as on any JAX backend that is not a TPU.
 * ``--device`` picks the device: the GPU when it is not given (the run
   raises if there is none), ``cpu`` runs the kernel's plain version.
 
@@ -57,10 +58,13 @@ class TrainConfig:
     # aggregate in the hand-written CSR kernel (ops/spmm_cuda.py); false
     # runs the plain gather/index_add_ path
     use_pallas: bool = True
-    # the JAX package's hybrid decomposition: 'auto-tpu' resolves to off
-    # on a GPU; any setting that turns it on is not ported yet
+    # dense-hot/sparse-cold SpMM (ops/hybrid.py): an integer hot-set size,
+    # or 'off'/'0'; 'auto-tpu' resolves to off on a GPU, 'auto' (the cost
+    # model) is not ported yet
     hybrid_k: str = "auto-tpu"
+    # the dual kernel for the hybrid's f32 'highest' dense pair: auto | on | off
     hybrid_fused: str = "auto"
+    # f32 dense-pair strategy: 'default' (= split2) | 'highest' | 'split2'
     hybrid_f32_mode: str = "default"
     # input dtype of the kernel: 'float32' or 'bfloat16' (f32 accumulation;
     # params/optimizer/loss stay f32)
@@ -170,6 +174,52 @@ def _off(v: str, *off_values: str) -> bool:
     return (v or "").lower() in off_values
 
 
+def hybrid_k_arg(cfg: TrainConfig):
+    """TrainConfig.hybrid_k ('off' | 'auto' | 'auto-tpu' | int string) ->
+    Trainer arg. 'auto-tpu' is off: the port never runs on a TPU."""
+    v = cfg.hybrid_k
+    if v in (None, "off", "none", "", "auto-tpu"):
+        return None
+    if v == "auto":
+        return "auto"
+    try:
+        return int(v) or None  # 0 = off, like 'off'
+    except ValueError:
+        raise SystemExit(
+            f"--train-hybrid-k must be 'off', 'auto', 'auto-tpu', or an "
+            f"integer hot-set size, got {v!r}"
+        )
+
+
+def hybrid_fused_arg(cfg: TrainConfig):
+    """TrainConfig.hybrid_fused ('auto' | 'on' | 'off') -> Trainer arg
+    (None = the default of ops/hybrid.build_hybrid_plan: off)."""
+    v = (cfg.hybrid_fused or "auto").lower()
+    if v in ("auto", "none", ""):
+        return None
+    if v in ("on", "true", "1", "yes"):
+        return True
+    if v in ("off", "false", "0", "no"):
+        return False
+    raise SystemExit(
+        f"--train-hybrid-fused must be 'auto', 'on', or 'off', got {v!r}"
+    )
+
+
+def hybrid_f32_mode_arg(cfg: TrainConfig):
+    """TrainConfig.hybrid_f32_mode ('default' | 'highest' | 'split2') ->
+    Trainer arg (None = the default, 'split2')."""
+    v = (cfg.hybrid_f32_mode or "default").lower()
+    if v in ("default", "none", ""):
+        return None
+    if v in ("highest", "split2"):
+        return v
+    raise SystemExit(
+        "--train-hybrid-f32-mode must be 'default', 'highest', or "
+        f"'split2', got {v!r}"
+    )
+
+
 def check_ported(cfg: ExperimentConfig) -> None:
     """Stop with a message naming ROADMAP.md when the config asks for
     anything this port does not have yet."""
@@ -181,12 +231,10 @@ def check_ported(cfg: ExperimentConfig) -> None:
         missing.append("--save-model")
     if cfg.model.model != "gcn":
         missing.append(f"--model-model {cfg.model.model}")
-    if not _off(t.hybrid_k, "auto-tpu", "off", "none", "", "0"):
-        missing.append(f"--train-hybrid-k {t.hybrid_k}")
-    if not _off(t.hybrid_fused, "auto", "none", ""):
-        missing.append(f"--train-hybrid-fused {t.hybrid_fused}")
-    if not _off(t.hybrid_f32_mode, "default", "none", ""):
-        missing.append(f"--train-hybrid-f32-mode {t.hybrid_f32_mode}")
+    if hybrid_k_arg(t) == "auto":  # the cost model has no H100 constants yet
+        missing.append("--train-hybrid-k auto")
+    hybrid_fused_arg(t)  # these two raise on a value they do not know
+    hybrid_f32_mode_arg(t)
     if not _off(t.sharding, "off", "none", ""):
         missing.append(f"--train-sharding {t.sharding}")
     if t.batch_size > 0:

@@ -9,6 +9,8 @@ Examples:
     python -m pytextgcn_tpu_torch.experiments.flat --dataset synthetic-amazon \\
         --model-n-hidden 100 --model-dropout 0.7 --train-lr 0.05 --train-seed 44
     python -m pytextgcn_tpu_torch.experiments.flat --device cpu --train-epochs 40
+    python -m pytextgcn_tpu_torch.experiments.flat --dataset synthetic-amazon \\
+        --train-hybrid-k 4096                     # the hybrid SpMM
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import numpy as np
 import torch
 
 from ..build.text2graph import Text2Graph
-from ..config import check_ported, make_model, parse_config
+from ..config import (check_ported, hybrid_f32_mode_arg, hybrid_fused_arg, hybrid_k_arg,
+                      make_model, parse_config)
 from ..train.metrics import confusion_matrix
 from ..train.results import append_result
 from ..train.trainer import Trainer
@@ -64,6 +67,9 @@ def run(cfg, g, n_classes):
         use_pallas=cfg.train.use_pallas,
         pallas_dtype=cfg.train.pallas_dtype,
         device=cfg.device,
+        hybrid_k=hybrid_k_arg(cfg.train),
+        hybrid_fused=hybrid_fused_arg(cfg.train),
+        hybrid_f32_mode=hybrid_f32_mode_arg(cfg.train),
     )
     history = trainer.fit(
         g,

@@ -15,6 +15,7 @@ import torch
 
 from ..core.graph import TextGraph, gcn_normalize_np
 from ..utils import resolve_device
+from .hybrid import HybridPlan, build_hybrid_plan
 from .spmm_cuda import SpmmPlan, build_plan_from_arrays
 
 
@@ -23,9 +24,10 @@ class NormAdj:
     """Symmetrically normalized adjacency in COO form + self-loop diagonal,
     as tensors on one device.
 
-    ``plan`` optionally holds the CSR kernel plan (:mod:`.spmm_cuda`); when
-    present the SpMM runs through the kernel, otherwise through the plain
-    gather + ``index_add_`` path (:func:`.spmm.spmm_segment`).
+    ``plan`` optionally holds the CSR kernel plan (:mod:`.spmm_cuda`) or a
+    hybrid plan (:mod:`.hybrid`); when present the SpMM runs through it,
+    otherwise through the plain gather + ``index_add_`` path
+    (:func:`.spmm.spmm_segment`).
     """
 
     src: torch.Tensor  # int64 [E]
@@ -33,7 +35,7 @@ class NormAdj:
     w: torch.Tensor  # float32 [E]
     self_w: torch.Tensor  # float32 [N]
     n_nodes: int
-    plan: Optional[SpmmPlan] = None
+    plan: Optional[Union[SpmmPlan, HybridPlan]] = None
 
     @staticmethod
     def from_graph(
@@ -41,17 +43,32 @@ class NormAdj:
         use_pallas: bool = False,
         pallas_dtype: str = "float32",
         device: Optional[Union[str, torch.device]] = None,
+        hybrid_k: Optional[int] = None,
+        hybrid_fused: Optional[bool] = None,
+        hybrid_f32_mode: Optional[str] = None,
     ) -> "NormAdj":
         """``use_pallas`` keeps the JAX package's name for "run the
         aggregation in the hand-written kernel": it builds the CSR plan.
         ``pallas_dtype``: 'float32' or 'bfloat16' (x read as bf16, f32
-        accumulation)."""
+        accumulation). ``hybrid_k``: the dense-hot/sparse-cold
+        decomposition (:mod:`.hybrid`) with a hot set of that size (0 or
+        None = off); it implies the CSR kernel for the cold residual.
+        ``hybrid_fused``: the dual kernel for the f32 'highest' dense pair
+        (None = off). ``hybrid_f32_mode``: 'split2' (None) or 'highest'."""
         device = resolve_device(device)
         src = np.asarray(g.edge_src)
         dst = np.asarray(g.edge_dst)
         norm_w, self_w = gcn_normalize_np(src, dst, g.edge_w, g.n_nodes)
         plan = None
-        if use_pallas:
+        if hybrid_k:
+            plan = build_hybrid_plan(
+                src, dst, norm_w, g.n_nodes, hot_k=hybrid_k, compute_dtype=pallas_dtype,
+                fused=hybrid_fused, f32_mode=hybrid_f32_mode, device=device,
+                # symmetric normalization keeps a construction-guaranteed
+                # weight symmetry: the randomized audit is enough
+                validate="fast" if getattr(g, "weight_symmetric", False) else True,
+            )
+        elif use_pallas:
             plan = build_plan_from_arrays(
                 src, dst, norm_w, g.n_nodes, compute_dtype=pallas_dtype, device=device
             )

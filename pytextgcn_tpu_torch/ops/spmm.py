@@ -2,9 +2,10 @@
 
 ``spmm(adj, x)`` computes ``A_hat @ x`` for the normalized adjacency:
 ``out[i] = self_w[i] * x[i] + sum_{e: dst[e]==i} w[e] * x[src[e]]``.
-Port of ``pytextgcn_tpu/ops/spmm.py``. Two paths:
+Port of ``pytextgcn_tpu/ops/spmm.py``. Three paths:
 
-* plan present: the CSR kernel (:mod:`.spmm_cuda`) through its autograd
+* hybrid plan: the dense-hot/sparse-cold decomposition (:mod:`.hybrid`);
+* CSR plan: the CSR kernel (:mod:`.spmm_cuda`) through its autograd
   function, which runs the kernel on the transpose plan for the gradient;
 * no plan: gather + ``index_add_`` (:func:`spmm_segment`), differentiated
   by autograd — the exact oracle, as ``spmm_segment`` is in the JAX package.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from .adjacency import NormAdj
+from .hybrid import HybridPlan, spmm_hybrid
 from .spmm_cuda import spmm_plan
 
 
@@ -27,6 +29,8 @@ def spmm_segment(adj: NormAdj, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmm(adj: NormAdj, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(adj.plan, HybridPlan):
+        return spmm_hybrid(adj.plan, x) + adj.self_w[:, None] * x
     if adj.plan is not None:
         return spmm_plan(adj.plan, x) + adj.self_w[:, None] * x
     return spmm_segment(adj, x)

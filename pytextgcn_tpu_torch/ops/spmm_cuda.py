@@ -24,26 +24,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from typing import Optional
 
 import numpy as np
 import torch
 
-from ..utils import BUILD_DIR
+from .cuda_lib import CudaLibrary
 
 # Longest run of edges one warp reduces; longer rows are cut into segments
 # whose partial sums a second kernel adds (see csrc/spmm_csr.cu).
 SEG_EDGES = 256
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "spmm_csr.cu")
-_OUT_DIR = os.path.join(BUILD_DIR, "cuda")
-_SO = os.path.join(_OUT_DIR, "libspmm_csr.so")
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -179,61 +169,19 @@ def spmm_csr_abs(csr: CsrPlan, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------- kernel
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-    return path
-
-
 class SpmmCsrKernel:
     """The compiled kernel: builds and loads it once, launches it, and
     counts its launches in ``launches`` (one per SpMM call)."""
 
     def __init__(self):
         self.launches = 0
-        self._lib: Optional[ctypes.CDLL] = None
-        self._lock = threading.Lock()
+        p, i = ctypes.c_void_p, ctypes.c_int
+        self.lib = CudaLibrary("spmm_csr.cu", "spmm_csr_launch",
+                               [p, p, p, i, p, p, p, i, i, i, p, p, p, p, i, p])
 
     def build(self, verbose: bool = False) -> str:
-        """Compile ``csrc/spmm_csr.cu`` if the library is missing or older
-        than the source. With ``verbose`` the compiler's output (register
-        and spill counts from ``-Xptxas -v``) is returned; else ''."""
-        with self._lock:
-            stale = (not os.path.exists(_SO)
-                     or os.path.getmtime(_SO) < os.path.getmtime(_SRC))
-            if not (stale or verbose):
-                return ""
-            os.makedirs(_OUT_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_OUT_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                   "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SRC]
-            if verbose:
-                cmd[1:1] = ["-Xptxas", "-v"]
-            try:
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                if res.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-                os.replace(tmp, _SO)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-            return res.stdout + res.stderr
-
-    def _load(self) -> ctypes.CDLL:
-        if self._lib is None:
-            self.build()
-            lib = ctypes.CDLL(_SO)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.spmm_csr_launch.argtypes = [p, p, p, i, p, p, p, i, i, i, p, p, p, p, i, p]
-            lib.spmm_csr_launch.restype = ctypes.c_int
-            self._lib = lib
-        return self._lib
+        """Compile ``csrc/spmm_csr.cu`` if needed; see :meth:`CudaLibrary.build`."""
+        return self.lib.build(verbose)
 
     def __call__(self, csr: CsrPlan, x: torch.Tensor) -> torch.Tensor:
         if not x.is_cuda:
@@ -252,10 +200,10 @@ class SpmmCsrKernel:
         out = torch.empty(csr.n_rows, h, dtype=torch.float32, device=x.device)
         partial = torch.empty(csr.n_partials, h, dtype=torch.float32, device=x.device)
         vec = 4 if (h % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0) else 1
-        lib = self._load()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.spmm_csr_launch(
+            self.lib.launch(
+                "spmm_csr",
                 csr.seg_ptr.data_ptr(), csr.seg_row.data_ptr(), csr.seg_slot.data_ptr(),
                 int(csr.seg_row.shape[0]), csr.col.data_ptr(), csr.val.data_ptr(),
                 x.data_ptr(), 0 if x.dtype == torch.float32 else 1, h, vec,
@@ -263,8 +211,6 @@ class SpmmCsrKernel:
                 csr.split_row.data_ptr(), csr.split_ptr.data_ptr(),
                 int(csr.split_row.shape[0]), stream,
             )
-        if err != 0:
-            raise RuntimeError(f"spmm_csr kernel launch failed: CUDA error {err}")
         self.launches += 1
         return out
 

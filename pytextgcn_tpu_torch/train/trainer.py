@@ -9,7 +9,9 @@ cross-entropy, backward and an optimizer step; the default optimizer is
 
 With ``use_pallas`` (the default here) the aggregation runs in the
 hand-written CSR kernel: 2 launches per forward pass and 2 more in the
-backward pass, so 4 per train step and 2 per evaluation.
+backward pass, so 4 per train step and 2 per evaluation. With
+``hybrid_k`` it runs the hybrid decomposition instead, whose dual kernel
+and residual CSR kernel launch that many times each.
 """
 
 from __future__ import annotations
@@ -38,18 +40,26 @@ class Trainer:
         use_pallas: bool = True,
         pallas_dtype: str = "float32",
         device: Optional[Union[str, torch.device]] = None,
+        hybrid_k: Optional[int] = None,
+        hybrid_fused: Optional[bool] = None,
+        hybrid_f32_mode: Optional[str] = None,
     ):
         """``seed`` seeds the dropout generator (parameters come with the
         model). ``use_pallas``: aggregate through the CSR kernel (else the
         plain gather/``index_add_`` path). ``pallas_dtype``: the kernel's
         input dtype, 'float32' or 'bfloat16' (parameters, optimizer and loss
-        stay f32). ``device``: None means the GPU (raises without one)."""
+        stay f32). ``device``: None means the GPU (raises without one).
+        ``hybrid_k``/``hybrid_fused``/``hybrid_f32_mode``: the hybrid
+        decomposition (ops/hybrid.py), as ``NormAdj.from_graph`` takes them."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.lr = lr
         self.seed = seed
         self.use_pallas = use_pallas
         self.pallas_dtype = pallas_dtype
+        self.hybrid_k = hybrid_k
+        self.hybrid_fused = hybrid_fused
+        self.hybrid_f32_mode = hybrid_f32_mode
         self.optimizer = resolve_optimizer(optimizer, self.model.parameters(), lr)
         # one dropout stream per trainer; each fit continues it, so refits
         # draw fresh masks (the JAX trainer folds in a fit counter instead)
@@ -70,7 +80,8 @@ class Trainer:
         if old is None or not (old[0] is key[0] and old[1] is key[1] and old[2] == key[2]):
             self._adj = NormAdj.from_graph(
                 g, use_pallas=self.use_pallas, pallas_dtype=self.pallas_dtype,
-                device=self.device,
+                device=self.device, hybrid_k=self.hybrid_k,
+                hybrid_fused=self.hybrid_fused, hybrid_f32_mode=self.hybrid_f32_mode,
             )
             self._adj_key = key
         self._feats = NodeFeatures.from_graph(g, device=self.device)

@@ -1,4 +1,5 @@
-"""The CUDA SpMM kernel against its plain version, on the card.
+"""The CUDA kernels (the CSR SpMM, the dual product) against their plain
+versions, on the card.
 
 Marked ``gpu``: each test skips, with its reason, when no CUDA device is
 present (decided in the fixture, at run time). On a machine with the card
@@ -7,6 +8,8 @@ marker registered on the command line):
 ``python -m pytest --noconftest -o "markers=gpu: needs a CUDA device"
 tests/test_torch_kernels_gpu.py -q``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -137,3 +140,136 @@ def test_gcn_on_card_matches_cpu(cuda):
     gpu = model(NormAdj.from_graph(g, use_pallas=True, device=cuda),
                 NodeFeatures.from_graph(g, device=cuda))
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------- the dual kernel (fused_dual.cu)
+
+from pytextgcn_tpu_torch.ops import fused_dual as fd  # noqa: E402
+from pytextgcn_tpu_torch.ops.spmm import spmm, spmm_segment  # noqa: E402
+
+DUAL_SHAPES = [(3000, 512, 100), (3000, 512, 43), (1001, 100, 19), (777, 200, 130),
+               (129, 7, 1)]
+
+
+def _dual_operands(variant, n, k, h, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d = torch.randn(n, k, generator=gen, device=device)
+    x = torch.randn(n, h, generator=gen, device=device)
+    xh = torch.randn(k, h, generator=gen, device=device)
+    if variant == fd.SPLIT:
+        return (*fd.split_bf16(d), x, xh)
+    if variant == fd.BF16:
+        return d.bfloat16(), None, x.bfloat16(), xh.bfloat16()
+    return d, None, x, xh
+
+
+@pytest.mark.parametrize("hot_t", [False, True], ids=["hot_KH", "hot_HK"])
+@pytest.mark.parametrize("variant", [fd.SPLIT, fd.BF16, fd.F32], ids=["split", "bf16", "f32"])
+@pytest.mark.parametrize("shape", DUAL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_dual_kernel_matches_plain(cuda, shape, variant, hot_t):
+    d, d_lo, x, xh = _dual_operands(variant, *shape, cuda)
+    before = fd.fused_dual_kernel.launches.get(fd.VARIANT_NAMES[variant] + "_t" * hot_t, 0)
+    out, hot = fd.fused_dual_kernel(variant, d, d_lo, x, xh, hot_t=hot_t)
+    torch.cuda.synchronize()
+    assert fd.fused_dual_kernel.launches[fd.VARIANT_NAMES[variant] + "_t" * hot_t] == before + 1
+    n, k, h = shape
+    assert out.shape == (n, h) and hot.shape == ((h, k) if hot_t else (k, h))
+    hot = hot.t() if hot_t else hot
+    want_out, want_hot = fd.dual_reference(variant, d, d_lo, x, xh)
+    mag_out, mag_hot = fd.dual_abs(variant, d, d_lo, x, xh)
+    # the kernel and the plain version sum in different orders (hot with
+    # atomics, in an order that changes from run to run)
+    _assert_close(out, want_out, mag_out)
+    _assert_close(hot, want_hot, mag_hot)
+
+
+@pytest.mark.parametrize("shape", DUAL_SHAPES[:3], ids=lambda s: "x".join(map(str, s)))
+def test_dual_kernel_bf16_against_f32_inputs(cuda, shape):
+    d, _, x, xh = _dual_operands(fd.F32, *shape, cuda)
+    out, hot = fd.fused_dual(d.bfloat16(), x, xh)
+    want_out, want_hot = fd.dual_reference(fd.F32, d, None, x, xh)
+    mag_out, mag_hot = fd.dual_abs(fd.F32, d, None, x, xh)
+    _assert_close(out, want_out, mag_out, rtol=2.0**-7)  # D and x each rounded to bf16
+    _assert_close(hot, want_hot, mag_hot, rtol=2.0**-7)
+    # split: within the split2 band of the f32 products
+    out, hot = fd.fused_dual_split(*fd.split_bf16(d), x, xh)
+    _assert_close(out, want_out, mag_out, rtol=2e-5)
+    _assert_close(hot, want_hot, mag_hot, rtol=2e-5)
+
+
+@pytest.mark.parametrize("layout", ["fused_dual_split", "fused_dual", "fused_dual_t"])
+def test_dual_autograd_backward_is_the_kernel(cuda, layout):
+    d, _, x0, xh0 = _dual_operands(fd.F32, 2000, 384, 100, cuda, seed=3)
+    x = x0.clone().requires_grad_(True)
+    xh = xh0.clone().requires_grad_(True)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    g_out = torch.randn(2000, 100, generator=gen, device=cuda)
+    g_hot = torch.randn(384, 100, generator=gen, device=cuda)
+    operands = (*fd.split_bf16(d),) if layout == "fused_dual_split" else (d,)
+    before = sum(fd.fused_dual_kernel.launches.values())
+    out, hot = getattr(fd, layout)(*operands, x, xh)
+    ((out * g_out).sum() + (hot * g_hot).sum()).backward()
+    assert sum(fd.fused_dual_kernel.launches.values()) == before + 2
+    variant = fd.SPLIT if layout == "fused_dual_split" else fd.F32
+    d_lo = operands[1] if variant == fd.SPLIT else None
+    want_gx, want_gxh = fd.dual_reference(variant, operands[0], d_lo, g_out, g_hot)
+    mag_gx, mag_gxh = fd.dual_abs(variant, operands[0], d_lo, g_out, g_hot)
+    _assert_close(x.grad, want_gx, mag_gx)
+    _assert_close(xh.grad, want_gxh, mag_gxh)
+
+
+def test_dual_wrapper_rejects_bad_inputs(cuda):
+    d, _, x, xh = _dual_operands(fd.F32, 64, 16, 8, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fd.fused_dual_kernel(fd.BF16, d, None, x, xh)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.fused_dual_kernel(fd.F32, d, None, x.t().contiguous().t(), xh)
+    with pytest.raises(ValueError, match=r"\[64, H\]"):
+        fd.fused_dual_kernel(fd.F32, d, None, x[:60].contiguous(), xh)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fd.fused_dual_kernel(fd.F32, d, None, x.cpu(), xh)
+
+
+def _symmetric_graph(rng, n_vocab=700, n_docs=1300, n_edges=60_000):
+    n = n_vocab + n_docs
+    p = 1.0 / np.arange(1, n + 1) ** 1.1
+    p /= p.sum()
+    a, b = rng.choice(n, n_edges // 2, p=p), rng.choice(n, n_edges // 2, p=p)
+    w = (rng.random(n_edges // 2) + 0.05).astype(np.float32)
+    return TextGraph(
+        edge_src=np.r_[a, b].astype(np.int32), edge_dst=np.r_[b, a].astype(np.int32),
+        edge_w=np.r_[w, w], y=np.zeros(n, np.int32), train_mask=np.zeros(n, bool),
+        val_mask=np.zeros(n, bool), test_mask=np.zeros(n, bool),
+        n_vocab=n_vocab, n_docs=n_docs, weight_symmetric=True)
+
+
+@pytest.mark.parametrize("mode,kw,rtol", [
+    ("split2", {}, 3e-5),
+    ("highest", dict(hybrid_f32_mode="highest"), 1e-5),
+    ("highest_fused", dict(hybrid_f32_mode="highest", hybrid_fused=True), 1e-5),
+    # bf16: D, x and, in the backward pass, the gradient are each rounded
+    # to bf16 (relative error <= 2^-9 apiece)
+    ("bf16", dict(pallas_dtype="bfloat16"), 2.0**-6),
+])
+@pytest.mark.parametrize("h", [100, 43])
+def test_hybrid_spmm_on_card_matches_segment(cuda, mode, kw, rtol, h):
+    g = _symmetric_graph(np.random.default_rng(h))
+    adj = NormAdj.from_graph(g, hybrid_k=256, device=cuda, **kw)
+    seg = NormAdj.from_graph(g, device=cuda)
+    x = torch.randn(g.n_nodes, h, device=cuda, requires_grad=True)
+    xs = x.detach().clone().requires_grad_(True)
+    ct = torch.randn(g.n_nodes, h, device=cuda)
+    dual_before = sum(fd.fused_dual_kernel.launches.values())
+    csr_before = spmm_cuda.spmm_csr_kernel.launches
+    out = spmm(adj, x)
+    (out * ct).sum().backward()
+    dual = sum(fd.fused_dual_kernel.launches.values()) - dual_before
+    assert dual == (0 if mode == "highest" else 2)  # 'highest' unfused: two torch.mm
+    assert spmm_cuda.spmm_csr_kernel.launches - csr_before == 2
+    want = spmm_segment(seg, xs)
+    (want * ct).sum().backward()
+    with torch.no_grad():
+        scale_out = spmm_segment(dataclasses.replace(seg, w=seg.w.abs()), x.abs())
+        scale_grad = spmm_segment(dataclasses.replace(seg, w=seg.w.abs()), ct.abs())
+    _assert_close(out.detach(), want.detach(), scale_out, rtol=rtol)
+    _assert_close(x.grad, xs.grad, scale_grad, rtol=rtol)
