@@ -10,8 +10,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases, each fatal (exit code 1, no result line) when it fails:
 
 1. build: the two CUDA kernels (``csrc/spmm_csr.cu``, ``csrc/fused_dual.cu``,
-   nvcc for sm_90a, their ptxas registers and spills) and the native host
-   library (g++), side by side; print the card and its power limit as
+   nvcc for sm_90a, their ptxas registers and spills), two timing builds of
+   the dual kernel's f32 variant (one TF32 pass; no split) and the native
+   host library (g++), side by side; print the card and its power limit as
    nvidia-smi gives them.
 2. graph: the synthetic-amazon corpus (50k docs) through the port's flat
    experiment (``load_corpus`` -> ``Text2Graph``); print N and E.
@@ -30,7 +31,8 @@ Phases, each fatal (exit code 1, no result line) when it fails:
 6. dual kernel: its split, bf16 and f32 variants and the [H, K] hot layout
    against their plain versions, at both widths, with the forward operands
    (x, x_hot) and the backward ones (g_out, g_hot), plus a ragged shape
-   with K < 128 and the gradient through the autograd function.
+   with K < 128 and the gradient through the autograd function; the f32
+   variant's out must repeat bit for bit (it is written without atomics).
 7. hybrid SpMM: ``spmm`` on the hybrid plan against ``spmm_segment``,
    forward and gradient, at both widths.
 8. hybrid paths: the flat experiment's ``run`` with ``--train-hybrid-k
@@ -44,9 +46,11 @@ Phases, each fatal (exit code 1, no result line) when it fails:
 9. times: each kernel, its plain version, its library yardstick (used
    nowhere in the port: ``torch.sparse.mm`` for the CSR kernel, the two
    ``torch.mm`` of the dense pair for the dual kernel) and its bound per
-   launch; the dual kernel without the hot side's atomics; the hybrid SpMM
-   per application; train steps on the CSR, hybrid and plain paths; peak
-   memory; and the split kernel at K = 1024, 2048 and 4096.
+   launch; the split and f32 dual kernels without the hot side's atomics;
+   the f32 variant's timing builds beside it, in turns (what limits it);
+   the hybrid SpMM per application; train steps on the CSR, hybrid and
+   plain paths; peak memory; and the split kernel at K = 1024, 2048 and
+   4096.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -66,10 +70,11 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data-sheet peaks: HBM3 bandwidth, f32 outside the tensor cores,
-# dense bf16 on the tensor cores
+# dense bf16 and dense TF32 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_TF32_FLOP_PER_S = 495e12
 HOT_K = 4096  # the hybrid's hot-set size on the main path
 K_SWEEP = (1024, 2048, 4096)
 
@@ -164,14 +169,17 @@ def spmm_work(csr, h: int, x_bytes: int):
 
 def dual_work(variant: int, n: int, k: int, h: int):
     """Bytes the dual product must move (D, x and xh read once, out and hot
-    written once) and its operations (the split runs three products a
-    side), for one launch on ``[n, k]`` D at width h."""
+    written once) and its operations, for one launch on ``[n, k]`` D at
+    width h. The split runs three bf16 products a side; the f32 variant
+    three TF32 products a side (big·big + big·small + small·big: f32-class
+    on the tensor cores, where one TF32 pass would lose ~2^-11), so its
+    operations are three TF32 passes at the TF32 peak."""
     from pytextgcn_tpu_torch.ops import fused_dual as fd
 
     d_item, x_item = {fd.SPLIT: (4, 4), fd.BF16: (2, 2), fd.F32: (4, 4)}[variant]
     n_bytes = n * k * d_item + (n + k) * h * (x_item + 4)
-    flops = (3 if variant == fd.SPLIT else 1) * 2 * 2 * n * k * h
-    peak = PEAK_F32_FLOP_PER_S if variant == fd.F32 else PEAK_BF16_FLOP_PER_S
+    flops = (1 if variant == fd.BF16 else 3) * 2 * 2 * n * k * h
+    peak = PEAK_TF32_FLOP_PER_S if variant == fd.F32 else PEAK_BF16_FLOP_PER_S
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return n_bytes, flops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -238,13 +246,20 @@ def main(argv=None) -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    # timing builds of the f32 variant (phase 9): one TF32 pass, and three
+    # passes fed raw f32 without the split; never used for results
+    f32_timing = {"1 pass": fd.FusedDualKernel(["-DFD_TF32_PASSES=1"], "_1pass"),
+                  "no split": fd.FusedDualKernel(["-DFD_TF32_NO_SPLIT"], "_nosplit")}
+    with ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(kernel.build, True), pool.submit(dual.build, True)]
+        timing_builds = [pool.submit(v.build) for v in f32_timing.values()]
         native_build = pool.submit(load_native)
         ptxas = [b.result() for b in builds]
+        for b in timing_builds:
+            b.result()
         native_build.result()
-    log(f"[1/9] built the two CUDA kernels and the native library in "
-        f"{time.perf_counter() - t0:.1f}s; ptxas:")
+    log(f"[1/9] built the two CUDA kernels (and two timing builds of the dual kernel) and "
+        f"the native library in {time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -403,6 +418,10 @@ def main(argv=None) -> int:
     def check_dual(label, variant, d, d_lo, a, b, hot_t=False, key=None, f32_ab=None):
         out, hot = dual(variant, d, d_lo, a, b, hot_t=hot_t)
         hot = hot.t() if hot_t else hot
+        if variant == fd.F32 and not torch.equal(out, dual(variant, d, d_lo, a, b,
+                                                           hot_t=hot_t)[0]):
+            fail(f"{label}: out differs between two launches (it is written once, "
+                 "without atomics)")
         want = fd.dual_reference(variant, d, d_lo, a, b)
         scale = fd.dual_abs(variant, d, d_lo, a, b)
         errs = [compare(f"{label} out", out, want[0], scale[0], F32_RTOL),
@@ -602,24 +621,47 @@ def main(argv=None) -> int:
                 f"{bound:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} "
                 f"GFLOP), plain {r['plain_ms']:.4f} ms, two torch.mm "
                 f"{r['library_ms']:.4f} ms")
-    # the hot side's atomics: the split kernel with and without them, in turns
+    # the hot side's atomics: the split and f32 kernels with and without
+    # them, in turns
     x = torch.randn(n, widths[0], generator=gen, device=dev)
     xh = x[hplan.hot_ids].contiguous()
     out = torch.empty(n, widths[0], device=dev)
     hot = torch.zeros(k, widths[0], device=dev)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def split_raw(hot_ptr):
-        dual.lib.launch("fused_dual", fd.SPLIT, 0, pair[0].data_ptr(), pair[1].data_ptr(),
-                        x.data_ptr(), xh.data_ptr(), n, k, widths[0], 1, out.data_ptr(),
-                        hot_ptr, stream)
+    def dual_raw(variant, d, d_lo, hot_ptr, lib=dual.lib):
+        lib.launch("fused_dual", variant, 0, d.data_ptr(),
+                   None if d_lo is None else d_lo.data_ptr(), x.data_ptr(), xh.data_ptr(),
+                   n, k, x.shape[1], 1, out.data_ptr(), hot_ptr, stream)
 
-    atomics = {"with_ms": [], "without_ms": []}
-    for key in ("with_ms", "without_ms", "without_ms", "with_ms"):
-        atomics[key].append(time_ms(lambda: split_raw(
-            hot.data_ptr() if key == "with_ms" else None), 20))
-    log(f"  split kernel H={widths[0]} with the hot side's atomics {atomics['with_ms']} ms, "
-        f"without them {atomics['without_ms']} ms (in turns)")
+    atomics = {}
+    for key, variant in (("split", fd.SPLIT), ("f32", fd.F32)):
+        atomics[key] = {"with_ms": [], "without_ms": []}
+        for turn in ("with_ms", "without_ms", "without_ms", "with_ms"):
+            atomics[key][turn].append(time_ms(lambda: dual_raw(
+                variant, *operands[variant], hot.data_ptr() if turn == "with_ms" else None),
+                20))
+        log(f"  {key} kernel H={widths[0]} with the hot side's atomics "
+            f"{atomics[key]['with_ms']} ms, without them {atomics[key]['without_ms']} ms "
+            f"(in turns)")
+    # what limits the f32 variant: its timing builds beside it, in turns
+    f32_limits = []
+    for h in widths:
+        x = torch.randn(n, h, generator=gen, device=dev)
+        xh = x[hplan.hot_ids].contiguous()
+        out = torch.empty(n, h, device=dev)
+        hot = torch.zeros(k, h, device=dev)
+        row = {"h": h}
+        for name in ("three passes", "1 pass", "no split", "no split", "1 pass",
+                     "three passes"):
+            lib = dual.lib if name == "three passes" else f32_timing[name].lib
+            for atom in (True, False):
+                key = name + ("" if atom else ", no atomics")
+                row.setdefault(key, []).append(time_ms(lambda: dual_raw(
+                    fd.F32, d32, None, hot.data_ptr() if atom else None, lib), 20))
+        f32_limits.append(row)
+        log(f"  f32 kernel H={h}, timing builds (ms, in turns): " + "; ".join(
+            f"{key} {v}" for key, v in row.items() if key != "h"))
     # the hybrid SpMM per application (forward), against the CSR kernel's
     # whole-graph SpMM at the same width
     hybrid_app = []
@@ -748,13 +790,14 @@ def main(argv=None) -> int:
         {**dual_entry("split", "pytextgcn_tpu/ops/fused_dual.py:185",
                       f"flat.run --train-hybrid-k {HOT_K} (f32 split2, the default), "
                       f"{args.epochs} epochs"),
-         "hot_atomics": atomics, "spmm_hybrid": hybrid_app, "k_sweep": k_sweep,
+         "hot_atomics": atomics["split"], "spmm_hybrid": hybrid_app, "k_sweep": k_sweep,
          "hybrid_plan": {"k": k, "n_resid": hplan.n_resid, "d_bytes": d_bytes,
                          "build_s": plan_s},
          "hybrid_path_peak_memory_gb": hpeak_gb},
-        dual_entry("f32", "pytextgcn_tpu/ops/fused_dual.py:53",
-                   f"flat.run --train-hybrid-k {HOT_K} --train-hybrid-fused on "
-                   "--train-hybrid-f32-mode highest, 3 epochs"),
+        {**dual_entry("f32", "pytextgcn_tpu/ops/fused_dual.py:53",
+                      f"flat.run --train-hybrid-k {HOT_K} --train-hybrid-fused on "
+                      "--train-hybrid-f32-mode highest, 3 epochs"),
+         "hot_atomics": atomics["f32"], "timing_builds": f32_limits},
         dual_entry("bf16", "pytextgcn_tpu/ops/fused_dual.py:53",
                    f"flat.run --train-hybrid-k {HOT_K} --train-hybrid-fused on "
                    "--train-pallas-dtype bfloat16, 3 epochs"),

@@ -33,15 +33,18 @@ def _nvcc() -> str:
 
 
 class CudaLibrary:
-    """``csrc/<source>`` compiled into ``lib<stem>.so``, exposing one C
+    """``csrc/<source>`` compiled into ``lib<stem><tag>.so``, exposing one C
     function ``symbol`` with ctypes ``argtypes`` that returns a CUDA error
-    code as int."""
+    code as int. ``flags`` are extra nvcc flags (a timing build's -D
+    macros), built under their own ``tag``."""
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 flags: Sequence[str] = (), tag: str = ""):
         self.src = os.path.join(CSRC_DIR, source)
-        self.so = os.path.join(OUT_DIR, f"lib{os.path.splitext(source)[0]}.so")
+        self.so = os.path.join(OUT_DIR, f"lib{os.path.splitext(source)[0]}{tag}.so")
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.flags = list(flags)
         self._fn = None
         self._lock = threading.Lock()
 
@@ -58,7 +61,7 @@ class CudaLibrary:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=OUT_DIR)
             os.close(fd)
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                   "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, self.src]
+                   "-O3", "-shared", "-Xcompiler", "-fPIC", *self.flags, "-o", tmp, self.src]
             if verbose:
                 cmd[1:1] = ["-Xptxas", "-v"]
             try:

@@ -10,8 +10,10 @@ element of D once for both. Three storage types of D, one kernel:
   :func:`split_bf16`; x and xh are split the same way inside the kernel and
   three bf16 products (hi·hi + hi·lo + lo·hi) are summed in f32 (the
   'split2' precision class, ~2^-18 relative);
-* :func:`fused_dual` — one f32 D (exact f32 products, the JAX HIGHEST) or
-  one bf16 D (x and xh cast to bf16, f32 sums);
+* :func:`fused_dual` — one f32 D (f32-class: three TF32 tensor-core passes,
+  big·big + big·small + small·big of the :func:`split_tf32` halves, ~2^-21
+  relative, which meets the JAX HIGHEST band) or one bf16 D (x and xh cast
+  to bf16, f32 sums);
 * :func:`fused_dual_t` — :func:`fused_dual` with the hot product written as
   ``[H, K]`` by the kernel and transposed once outside.
 
@@ -48,6 +50,22 @@ def split_bf16(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def split_tf32(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> (big, small), both f32 holding TF32 values (the low 13 bits
+    zero), as the f32 kernel splits each operand: ``big`` is ``a`` rounded
+    to TF32 to nearest with ties away from zero (PTX ``cvt.rna.tf32.f32``)
+    and ``small`` the same rounding of ``a - big``, which is exact in f32.
+    ``|big + small - a| <= 2^-22 |a|``. Finite inputs only."""
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        # sign-magnitude bits: adding half an ulp rounds the magnitude up on
+        # a tie, then the low 13 bits are cut
+        return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    a = a.float().contiguous()
+    big = rna(a)
+    return big, rna(a - big)
+
+
 # ------------------------------------------------------------ plain version
 
 
@@ -67,6 +85,21 @@ def dual_reference(variant: int, d: torch.Tensor, d_lo: Optional[torch.Tensor],
     return df @ xh.float(), df.t() @ x.float()
 
 
+def dual_reference_tf32x3(d: torch.Tensor, x: torch.Tensor,
+                          xh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 kernel's arithmetic in plain PyTorch: each operand split by
+    :func:`split_tf32`, three products a side (big·big + big·small +
+    small·big; small·small dropped), f32 sums. Every product of two TF32
+    values is exact in f32, so this differs from the kernel only in the
+    order of the sums."""
+    db, ds = split_tf32(d)
+    xb, xs = split_tf32(x)
+    xhb, xhs = split_tf32(xh)
+    out = db @ xhs + ds @ xhb + db @ xhb
+    hot = db.t() @ xs + ds.t() @ xb + db.t() @ xb
+    return out, hot
+
+
 def dual_abs(variant: int, d: torch.Tensor, d_lo: Optional[torch.Tensor],
              x: torch.Tensor, xh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(|D| @ |xh|, |D|^T @ |x|)``: per output, the sum of its terms'
@@ -83,13 +116,15 @@ def dual_abs(variant: int, d: torch.Tensor, d_lo: Optional[torch.Tensor],
 class FusedDualKernel:
     """The compiled kernel: builds and loads it once, launches it, and
     counts its launches per variant in ``launches`` (keys 'split', 'bf16',
-    'f32', 'f32_t', 'bf16_t'; one per dual product)."""
+    'f32', 'f32_t', 'bf16_t'; one per dual product). ``flags`` and ``tag``
+    make a separate timing build (nvcc -D macros of ``csrc/fused_dual.cu``,
+    used by chip_smoke.py only); the port uses the default one."""
 
-    def __init__(self):
+    def __init__(self, flags=(), tag: str = ""):
         self.launches = {}
         p, i = ctypes.c_void_p, ctypes.c_int
         self.lib = CudaLibrary("fused_dual.cu", "fused_dual_launch",
-                               [i, i, p, p, p, p, i, i, i, i, p, p, p])
+                               [i, i, p, p, p, p, i, i, i, i, p, p, p], flags, tag)
 
     def build(self, verbose: bool = False) -> str:
         """Compile ``csrc/fused_dual.cu`` if needed; see :meth:`CudaLibrary.build`."""
@@ -123,7 +158,7 @@ class FusedDualKernel:
         if tuple(x.shape) != (n, h) or tuple(xh.shape) != (k, h):
             raise ValueError(f"x must be [{n}, H] and xh [{k}, H], got {list(x.shape)} "
                              f"and {list(xh.shape)}")
-        if max(n, k, h) >= 2**31 or -(-h // 128) > 65535:
+        if max(n, k, h) >= 2**31 or -(-h // 104) > 65535:
             raise ValueError(f"shape {n}x{k}, H={h} is too large for the kernel's grid")
         vec_ok = int(k * d.element_size() % 16 == 0
                      and all(p.data_ptr() % 16 == 0 for p in planes))
@@ -186,8 +221,9 @@ def _variant_of(d: torch.Tensor) -> int:
 
 def fused_dual(d: torch.Tensor, x: torch.Tensor,
                xh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(D @ xh, D^T @ x)`` reading D once: f32 D in exact f32, or bf16 D
-    with x and xh cast to bf16 and f32 sums. Results are f32."""
+    """``(D @ xh, D^T @ x)`` reading D once: f32 D f32-class (three TF32
+    passes on the card), or bf16 D with x and xh cast to bf16 and f32 sums.
+    Results are f32."""
     variant = _variant_of(d)
     return FusedDualFunction.apply(x.to(d.dtype), xh.to(d.dtype), d, None, variant, False)
 

@@ -183,6 +183,37 @@ def test_dual_kernel_matches_plain(cuda, shape, variant, hot_t):
     _assert_close(hot, want_hot, mag_hot)
 
 
+# N on no row slab, K on no K tile: (1000, 300) loads D in 16-byte chunks
+# with a ragged last tile, (1000, 333) takes the scalar loads (K * 4 is no
+# multiple of 16)
+F32_RAGGED_SHAPES = [(1000, 300, 100), (1000, 333, 43), (250, 1030, 8)]
+
+
+@pytest.mark.parametrize("hot_t", [False, True], ids=["hot_KH", "hot_HK"])
+@pytest.mark.parametrize("shape", DUAL_SHAPES[:2] + F32_RAGGED_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_f32_kernel_is_three_tf32_passes(cuda, shape, hot_t):
+    """The f32 variant against an f64 oracle and against its own arithmetic
+    emulated on the card (``dual_reference_tf32x3``), within 5e-6 of
+    |D| @ |x|: three TF32 passes with f32 sums are ~2.5e-7 from the oracle,
+    the tensor cores' accumulation (which drops the bits an IEEE sum would
+    round) adds ~1.4e-6 at K = 512, and one TF32 pass would be ~1e-4. out
+    is written once, without atomics, so two launches give the same bits."""
+    d, _, x, xh = _dual_operands(fd.F32, *shape, cuda, seed=11)
+    out, hot = fd.fused_dual_kernel(fd.F32, d, None, x, xh, hot_t=hot_t)
+    out2, _ = fd.fused_dual_kernel(fd.F32, d, None, x, xh, hot_t=hot_t)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    hot = hot.t() if hot_t else hot
+    d64 = d.double()
+    mag_out, mag_hot = fd.dual_abs(fd.F32, d, None, x, xh)
+    _assert_close(out, d64 @ xh.double(), mag_out, rtol=5e-6, atol=0)
+    _assert_close(hot, d64.t() @ x.double(), mag_hot, rtol=5e-6, atol=0)
+    emu_out, emu_hot = fd.dual_reference_tf32x3(d, x, xh)
+    _assert_close(out, emu_out, mag_out, rtol=5e-6, atol=0)
+    _assert_close(hot, emu_hot, mag_hot, rtol=5e-6, atol=0)
+
+
 @pytest.mark.parametrize("shape", DUAL_SHAPES[:3], ids=lambda s: "x".join(map(str, s)))
 def test_dual_kernel_bf16_against_f32_inputs(cuda, shape):
     d, _, x, xh = _dual_operands(fd.F32, *shape, cuda)
