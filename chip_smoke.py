@@ -10,10 +10,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases, each fatal (exit code 1, no result line) when it fails:
 
 1. build: the two CUDA kernels (``csrc/spmm_csr.cu``, ``csrc/fused_dual.cu``,
-   nvcc for sm_90a, their ptxas registers and spills), two timing builds of
-   the dual kernel's f32 variant (one TF32 pass; no split) and the native
-   host library (g++), side by side; print the card and its power limit as
-   nvidia-smi gives them.
+   nvcc for sm_90a, their ptxas registers and spills), four timing builds
+   of the dual kernel (f32: one TF32 pass, no split; split: one bf16 pass;
+   split and bf16: float4 hot atomics) and the native host library (g++),
+   side by side; print the card and its power limit as nvidia-smi gives
+   them.
 2. graph: the synthetic-amazon corpus (50k docs) through the port's flat
    experiment (``load_corpus`` -> ``Text2Graph``); print N and E.
 3. check: the CSR kernel against its plain PyTorch version on the card, on
@@ -31,8 +32,10 @@ Phases, each fatal (exit code 1, no result line) when it fails:
 6. dual kernel: its split, bf16 and f32 variants and the [H, K] hot layout
    against their plain versions, at both widths, with the forward operands
    (x, x_hot) and the backward ones (g_out, g_hot), plus a ragged shape
-   with K < 128 and the gradient through the autograd function; the f32
-   variant's out must repeat bit for bit (it is written without atomics).
+   with K < 128 and the gradient through the autograd function; every
+   variant's out must repeat bit for bit (it is written without atomics),
+   and the split and bf16 variants' prologue must give the planes of its
+   plain version bit for bit.
 7. hybrid SpMM: ``spmm`` on the hybrid plan against ``spmm_segment``,
    forward and gradient, at both widths.
 8. hybrid paths: the flat experiment's ``run`` with ``--train-hybrid-k
@@ -46,8 +49,11 @@ Phases, each fatal (exit code 1, no result line) when it fails:
 9. times: each kernel, its plain version, its library yardstick (used
    nowhere in the port: ``torch.sparse.mm`` for the CSR kernel, the two
    ``torch.mm`` of the dense pair for the dual kernel) and its bound per
-   launch; the split and f32 dual kernels without the hot side's atomics;
-   the f32 variant's timing builds beside it, in turns (what limits it);
+   launch, the split and bf16 variants with their prologue; the split, bf16
+   and f32 dual kernels without the hot side's reduction, and the split and
+   bf16 ones with float4 atomics in place of their bulk reduction; the f32
+   and split variants' timing builds beside them, in turns (what limits
+   them);
    the hybrid SpMM per application; train steps on the CSR, hybrid and
    plain paths; peak memory; and the split kernel at K = 1024, 2048 and
    4096.
@@ -246,19 +252,24 @@ def main(argv=None) -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    # timing builds of the f32 variant (phase 9): one TF32 pass, and three
-    # passes fed raw f32 without the split; never used for results
+    # timing builds (phase 9), never used for results: the f32 variant with
+    # one TF32 pass, and with three passes fed raw f32 without the split;
+    # the split variant with one bf16 pass; the split and bf16 variants with
+    # float4 atomics in place of the bulk reduction
     f32_timing = {"1 pass": fd.FusedDualKernel(["-DFD_TF32_PASSES=1"], "_1pass"),
                   "no split": fd.FusedDualKernel(["-DFD_TF32_NO_SPLIT"], "_nosplit")}
-    with ThreadPoolExecutor(5) as pool:
+    split_1pass = fd.FusedDualKernel(["-DFD_SPLIT_PASSES=1"], "_split1pass")
+    hot_float4 = fd.FusedDualKernel(["-DFD_HOT_ATOMICS"], "_hotatomics")
+    with ThreadPoolExecutor(7) as pool:
         builds = [pool.submit(kernel.build, True), pool.submit(dual.build, True)]
-        timing_builds = [pool.submit(v.build) for v in f32_timing.values()]
+        timing_builds = [pool.submit(v.build)
+                         for v in (*f32_timing.values(), split_1pass, hot_float4)]
         native_build = pool.submit(load_native)
         ptxas = [b.result() for b in builds]
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/9] built the two CUDA kernels (and two timing builds of the dual kernel) and "
+    log(f"[1/9] built the two CUDA kernels (and four timing builds of the dual kernel) and "
         f"the native library in {time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
         for line in out.splitlines():
@@ -418,8 +429,7 @@ def main(argv=None) -> int:
     def check_dual(label, variant, d, d_lo, a, b, hot_t=False, key=None, f32_ab=None):
         out, hot = dual(variant, d, d_lo, a, b, hot_t=hot_t)
         hot = hot.t() if hot_t else hot
-        if variant == fd.F32 and not torch.equal(out, dual(variant, d, d_lo, a, b,
-                                                           hot_t=hot_t)[0]):
+        if not torch.equal(out, dual(variant, d, d_lo, a, b, hot_t=hot_t)[0]):
             fail(f"{label}: out differs between two launches (it is written once, "
                  "without atomics)")
         want = fd.dual_reference(variant, d, d_lo, a, b)
@@ -436,6 +446,13 @@ def main(argv=None) -> int:
 
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev)
+        for variant, a in ((fd.SPLIT, x), (fd.BF16, x.bfloat16())):
+            if not torch.equal(dual.planes(variant, a).view(torch.int16),
+                               fd.operand_planes(variant, a).view(torch.int16)):
+                fail(f"{fd.VARIANT_NAMES[variant]} prologue H={h}: planes differ from "
+                     "operand_planes")
+        log(f"  check split and bf16 prologue H={h}: planes equal to operand_planes bit for "
+            "bit ok")
         forms = (("forward (x, x_hot)", x, x[hplan.hot_ids]),
                  ("backward (g_out, g_hot)", torch.randn(n, h, generator=gen, device=dev),
                   torch.randn(k, h, generator=gen, device=dev)))
@@ -595,8 +612,10 @@ def main(argv=None) -> int:
     # the dual kernel per launch at the main path's shape (x_hot = x[hot] and
     # the backward's (g_out, g_hot) have the same shapes), each variant
     # beside its plain version and the two torch.mm of the JAX non-fused
-    # route (f32 with TF32 off; bf16 for the bf16 variant)
+    # route (f32 with TF32 off; bf16 for the bf16 variant); the split and
+    # bf16 variants' times include their prologue, also timed alone
     operands = {fd.SPLIT: pair, fd.F32: (d32, None), fd.BF16: (dbf, None)}
+    cast = lambda variant, *ts: tuple(t.bfloat16() if variant == fd.BF16 else t for t in ts)
     dual_rows = {key: [] for key in ("split", "f32", "f32_t", "bf16")}
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev)
@@ -604,7 +623,7 @@ def main(argv=None) -> int:
         for key, variant, hot_t in (("split", fd.SPLIT, False), ("f32", fd.F32, False),
                                     ("f32_t", fd.F32, True), ("bf16", fd.BF16, False)):
             d, d_lo = operands[variant]
-            a, b = (x.bfloat16(), xh.bfloat16()) if variant == fd.BF16 else (x, xh)
+            a, b = cast(variant, x, xh)
             lib_d = dbf if variant == fd.BF16 else d32
             n_bytes, flops, bound, bound_by = dual_work(variant, n, k, h)
             r = {
@@ -616,52 +635,61 @@ def main(argv=None) -> int:
                                       20),
                 "bound_ms": bound, "bound_by": bound_by, "bytes": n_bytes, "flops": flops,
             }
+            if variant != fd.F32:
+                r["prologue_ms"] = time_ms(
+                    lambda: (dual.planes(variant, a), dual.planes(variant, b.contiguous())), 20)
             dual_rows[key].append(r)
-            log(f"  fused_dual {key} N={n} K={k} H={h}: kernel {r['ms']:.4f} ms, bound "
-                f"{bound:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB, {flops / 1e9:.1f} "
-                f"GFLOP), plain {r['plain_ms']:.4f} ms, two torch.mm "
+            log(f"  fused_dual {key} N={n} K={k} H={h}: kernel {r['ms']:.4f} ms"
+                + (f" (prologue {r['prologue_ms']:.4f})" if "prologue_ms" in r else "")
+                + f", bound {bound:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.1f} GFLOP), plain {r['plain_ms']:.4f} ms, two torch.mm "
                 f"{r['library_ms']:.4f} ms")
-    # the hot side's atomics: the split and f32 kernels with and without
-    # them, in turns
-    x = torch.randn(n, widths[0], generator=gen, device=dev)
-    xh = x[hplan.hot_ids].contiguous()
-    out = torch.empty(n, widths[0], device=dev)
-    hot = torch.zeros(k, widths[0], device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def dual_raw(variant, d, d_lo, hot_ptr, lib=dual.lib):
-        lib.launch("fused_dual", variant, 0, d.data_ptr(),
-                   None if d_lo is None else d_lo.data_ptr(), x.data_ptr(), xh.data_ptr(),
-                   n, k, x.shape[1], 1, out.data_ptr(), hot_ptr, stream)
-
-    atomics = {}
-    for key, variant in (("split", fd.SPLIT), ("f32", fd.F32)):
-        atomics[key] = {"with_ms": [], "without_ms": []}
-        for turn in ("with_ms", "without_ms", "without_ms", "with_ms"):
-            atomics[key][turn].append(time_ms(lambda: dual_raw(
-                variant, *operands[variant], hot.data_ptr() if turn == "with_ms" else None),
-                20))
-        log(f"  {key} kernel H={widths[0]} with the hot side's atomics "
-            f"{atomics[key]['with_ms']} ms, without them {atomics[key]['without_ms']} ms "
-            f"(in turns)")
-    # what limits the f32 variant: its timing builds beside it, in turns
-    f32_limits = []
+    # the hot side's reduction into [K, H] hot (the bulk reduction for split
+    # and bf16, float4 atomics for f32): each variant with it ("with_ms"),
+    # without it ("without_ms": the hot product is still computed) and, for
+    # split and bf16, with float4 atomics in its place ("float4_ms", the
+    # FD_HOT_ATOMICS build), in turns
+    hot_reduction = {key: [] for key in ("split", "bf16", "f32")}
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev)
         xh = x[hplan.hot_ids].contiguous()
         out = torch.empty(n, h, device=dev)
         hot = torch.zeros(k, h, device=dev)
-        row = {"h": h}
-        for name in ("three passes", "1 pass", "no split", "no split", "1 pass",
-                     "three passes"):
-            lib = dual.lib if name == "three passes" else f32_timing[name].lib
-            for atom in (True, False):
-                key = name + ("" if atom else ", no atomics")
-                row.setdefault(key, []).append(time_ms(lambda: dual_raw(
-                    fd.F32, d32, None, hot.data_ptr() if atom else None, lib), 20))
-        f32_limits.append(row)
-        log(f"  f32 kernel H={h}, timing builds (ms, in turns): " + "; ".join(
-            f"{key} {v}" for key, v in row.items() if key != "h"))
+        for key, variant in (("split", fd.SPLIT), ("bf16", fd.BF16), ("f32", fd.F32)):
+            a, b = cast(variant, x, xh)
+            turns = ["with_ms", "without_ms"] + (["float4_ms"] if variant != fd.F32 else [])
+            row = {"h": h, **{turn: [] for turn in turns}}
+            for turn in turns + turns[::-1]:
+                lib = hot_float4 if turn == "float4_ms" else dual
+                row[turn].append(time_ms(lambda: lib.launch_raw(
+                    variant, *operands[variant], a, b, out,
+                    None if turn == "without_ms" else hot), 20))
+            hot_reduction[key].append(row)
+            log(f"  {key} kernel H={h}, the hot side's reduction (ms, in turns): with it "
+                f"{row['with_ms']}, without it {row['without_ms']}"
+                + (f", float4 atomics in its place {row['float4_ms']}"
+                   if "float4_ms" in row else ""))
+    # what limits the f32 and split variants: their timing builds beside
+    # them, in turns
+    limits = {"f32": [], "split": []}
+    for h in widths:
+        x = torch.randn(n, h, generator=gen, device=dev)
+        xh = x[hplan.hot_ids].contiguous()
+        out = torch.empty(n, h, device=dev)
+        hot = torch.zeros(k, h, device=dev)
+        for key, variant, builds in (("f32", fd.F32, {"three passes": dual, **f32_timing}),
+                                     ("split", fd.SPLIT, {"three passes": dual,
+                                                          "1 pass": split_1pass})):
+            row = {"h": h}
+            for name in list(builds) + list(builds)[::-1]:
+                for atom in (True, False):
+                    row.setdefault(name + ("" if atom else ", no atomics"), []).append(
+                        time_ms(lambda: builds[name].launch_raw(
+                            variant, *operands[variant], x, xh, out, hot if atom else None),
+                            20))
+            limits[key].append(row)
+            log(f"  {key} kernel H={h}, timing builds (ms, in turns): " + "; ".join(
+                f"{name} {v}" for name, v in row.items() if name != "h"))
     # the hybrid SpMM per application (forward), against the CSR kernel's
     # whole-graph SpMM at the same width
     hybrid_app = []
@@ -790,17 +818,19 @@ def main(argv=None) -> int:
         {**dual_entry("split", "pytextgcn_tpu/ops/fused_dual.py:185",
                       f"flat.run --train-hybrid-k {HOT_K} (f32 split2, the default), "
                       f"{args.epochs} epochs"),
-         "hot_atomics": atomics["split"], "spmm_hybrid": hybrid_app, "k_sweep": k_sweep,
+         "hot_reduction": hot_reduction["split"], "timing_builds": limits["split"],
+         "spmm_hybrid": hybrid_app, "k_sweep": k_sweep,
          "hybrid_plan": {"k": k, "n_resid": hplan.n_resid, "d_bytes": d_bytes,
                          "build_s": plan_s},
          "hybrid_path_peak_memory_gb": hpeak_gb},
         {**dual_entry("f32", "pytextgcn_tpu/ops/fused_dual.py:53",
                       f"flat.run --train-hybrid-k {HOT_K} --train-hybrid-fused on "
                       "--train-hybrid-f32-mode highest, 3 epochs"),
-         "hot_atomics": atomics["f32"], "timing_builds": f32_limits},
-        dual_entry("bf16", "pytextgcn_tpu/ops/fused_dual.py:53",
-                   f"flat.run --train-hybrid-k {HOT_K} --train-hybrid-fused on "
-                   "--train-pallas-dtype bfloat16, 3 epochs"),
+         "hot_reduction": hot_reduction["f32"], "timing_builds": limits["f32"]},
+        {**dual_entry("bf16", "pytextgcn_tpu/ops/fused_dual.py:53",
+                      f"flat.run --train-hybrid-k {HOT_K} --train-hybrid-fused on "
+                      "--train-pallas-dtype bfloat16, 3 epochs"),
+         "hot_reduction": hot_reduction["bf16"]},
         dual_entry("f32_t", "pytextgcn_tpu/ops/fused_dual.py:159",
                    "fused_dual_t forward and backward on the main path's D at both widths"),
     ]

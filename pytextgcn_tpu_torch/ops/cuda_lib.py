@@ -13,7 +13,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 from ..utils import BUILD_DIR
 
@@ -33,19 +33,22 @@ def _nvcc() -> str:
 
 
 class CudaLibrary:
-    """``csrc/<source>`` compiled into ``lib<stem><tag>.so``, exposing one C
-    function ``symbol`` with ctypes ``argtypes`` that returns a CUDA error
+    """``csrc/<source>`` compiled into ``lib<stem><tag>.so``, exposing the C
+    function ``symbol`` with ctypes ``argtypes``, and any of
+    ``extra_symbols`` (name -> argtypes) by name; each returns a CUDA error
     code as int. ``flags`` are extra nvcc flags (a timing build's -D
     macros), built under their own ``tag``."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence,
-                 flags: Sequence[str] = (), tag: str = ""):
+                 flags: Sequence[str] = (), tag: str = "",
+                 extra_symbols: Optional[Dict[str, Sequence]] = None):
         self.src = os.path.join(CSRC_DIR, source)
         self.so = os.path.join(OUT_DIR, f"lib{os.path.splitext(source)[0]}{tag}.so")
         self.symbol = symbol
-        self.argtypes = list(argtypes)
+        self.argtypes = {symbol: list(argtypes)}
+        self.argtypes.update((name, list(a)) for name, a in (extra_symbols or {}).items())
         self.flags = list(flags)
-        self._fn = None
+        self._fns = {}
         self._lock = threading.Lock()
 
     def build(self, verbose: bool = False) -> str:
@@ -74,18 +77,21 @@ class CudaLibrary:
                     os.remove(tmp)
             return res.stdout + res.stderr
 
-    def fn(self):
-        """The loaded C function (built first if needed)."""
-        if self._fn is None:
+    def fn(self, symbol: Optional[str] = None):
+        """The loaded C function ``symbol`` (default: the library's
+        ``symbol``), built first if needed."""
+        symbol = symbol or self.symbol
+        if symbol not in self._fns:
             self.build()
-            fn = getattr(ctypes.CDLL(self.so), self.symbol)
-            fn.argtypes = self.argtypes
+            fn = getattr(ctypes.CDLL(self.so), symbol)
+            fn.argtypes = self.argtypes[symbol]
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._fns[symbol] = fn
+        return self._fns[symbol]
 
-    def launch(self, name: str, *args) -> None:
-        """Call the C function; raise if it returns a CUDA error."""
-        err = self.fn()(*args)
+    def launch(self, name: str, *args, symbol: Optional[str] = None) -> None:
+        """Call the C function ``symbol`` (default: the library's
+        ``symbol``); raise if it returns a CUDA error."""
+        err = self.fn(symbol)(*args)
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -7,9 +7,10 @@ skinny ``[., H]`` operands every application; the hand-written CUDA kernel
 element of D once for both. Three storage types of D, one kernel:
 
 * :func:`fused_dual_split` — D as a bf16 (hi, lo) pair from
-  :func:`split_bf16`; x and xh are split the same way inside the kernel and
-  three bf16 products (hi·hi + hi·lo + lo·hi) are summed in f32 (the
-  'split2' precision class, ~2^-18 relative);
+  :func:`split_bf16`; x and xh are split the same way once per launch (the
+  kernel's prologue, :func:`operand_planes` in plain PyTorch) and three
+  bf16 products (hi·hi + hi·lo + lo·hi) are summed in f32 (the 'split2'
+  precision class, ~2^-18 relative);
 * :func:`fused_dual` — one f32 D (f32-class: three TF32 tensor-core passes,
   big·big + big·small + small·big of the :func:`split_tf32` halves, ~2^-21
   relative, which meets the JAX HIGHEST band) or one bf16 D (x and xh cast
@@ -66,6 +67,25 @@ def split_tf32(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return big, rna(a - big)
 
 
+def pad_width(h: int) -> int:
+    """The row stride of the bf16 operand planes: H rounded up to a
+    multiple of 8 elements, so that every row starts on 16 bytes."""
+    return -(-h // 8) * 8
+
+
+def operand_planes(variant: int, a: torch.Tensor) -> torch.Tensor:
+    """The split and bf16 kernels' prologue in plain PyTorch: ``a``
+    ``[rows, H]`` as bf16 planes ``[P, rows, pad_width(H)]``, zeros past H;
+    split (f32 ``a``): P = 2, the :func:`split_bf16` hi and lo halves;
+    bf16: P = 1, a copy."""
+    halves = split_bf16(a) if variant == SPLIT else (a.to(torch.bfloat16),)
+    planes = torch.zeros(len(halves), a.shape[0], pad_width(a.shape[1]),
+                         dtype=torch.bfloat16, device=a.device)
+    for plane, half in zip(planes, halves):
+        plane[:, :a.shape[1]] = half
+    return planes
+
+
 # ------------------------------------------------------------ plain version
 
 
@@ -116,15 +136,17 @@ def dual_abs(variant: int, d: torch.Tensor, d_lo: Optional[torch.Tensor],
 class FusedDualKernel:
     """The compiled kernel: builds and loads it once, launches it, and
     counts its launches per variant in ``launches`` (keys 'split', 'bf16',
-    'f32', 'f32_t', 'bf16_t'; one per dual product). ``flags`` and ``tag``
-    make a separate timing build (nvcc -D macros of ``csrc/fused_dual.cu``,
-    used by chip_smoke.py only); the port uses the default one."""
+    'f32', 'f32_t', 'bf16_t'; one per dual product, the split and bf16
+    variants' prologue included). ``flags`` and ``tag`` make a separate
+    timing build (nvcc -D macros of ``csrc/fused_dual.cu``, used by
+    chip_smoke.py only); the port uses the default one."""
 
     def __init__(self, flags=(), tag: str = ""):
         self.launches = {}
         p, i = ctypes.c_void_p, ctypes.c_int
         self.lib = CudaLibrary("fused_dual.cu", "fused_dual_launch",
-                               [i, i, p, p, p, p, i, i, i, i, p, p, p], flags, tag)
+                               [i, i, p, p, p, p, i, i, i, i, p, p, p], flags, tag,
+                               extra_symbols={"fused_dual_prologue": [i, p, i, i, p, p]})
 
     def build(self, verbose: bool = False) -> str:
         """Compile ``csrc/fused_dual.cu`` if needed; see :meth:`CudaLibrary.build`."""
@@ -160,20 +182,52 @@ class FusedDualKernel:
                              f"and {list(xh.shape)}")
         if max(n, k, h) >= 2**31 or -(-h // 104) > 65535:
             raise ValueError(f"shape {n}x{k}, H={h} is too large for the kernel's grid")
-        vec_ok = int(k * d.element_size() % 16 == 0
-                     and all(p.data_ptr() % 16 == 0 for p in planes))
         out = torch.empty(n, h, dtype=torch.float32, device=d.device)
         hot = torch.zeros((h, k) if hot_t else (k, h), dtype=torch.float32, device=d.device)
+        self.launch_raw(variant, d, d_lo, x, xh, out, hot, hot_t)
+        key = VARIANT_NAMES[variant] + ("_t" if hot_t else "")
+        self.launches[key] = self.launches.get(key, 0) + 1
+        return out, hot
+
+    def planes(self, variant: int, a: torch.Tensor) -> torch.Tensor:
+        """The split and bf16 variants' prologue on the card: ``a`` (f32 for
+        split, bf16 for bf16; contiguous) as the bf16 planes of
+        :func:`operand_planes`, bit for bit."""
+        want = {SPLIT: torch.float32, BF16: torch.bfloat16}.get(variant)
+        if want is None or not (a.is_cuda and a.dtype == want and a.dim() == 2
+                                and a.is_contiguous()):
+            raise ValueError(f"the {VARIANT_NAMES.get(variant, variant)} prologue takes a "
+                             f"contiguous CUDA {want} matrix, got {a.dtype} {tuple(a.shape)} "
+                             f"on {a.device}")
+        rows, h = a.shape
+        planes = torch.empty(2 if variant == SPLIT else 1, rows, pad_width(h),
+                             dtype=torch.bfloat16, device=a.device)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            self.lib.launch("fused_dual prologue", variant, a.data_ptr(), rows, h,
+                            planes.data_ptr(), stream, symbol="fused_dual_prologue")
+        return planes
+
+    def launch_raw(self, variant: int, d, d_lo, x, xh, out: torch.Tensor,
+                   hot: Optional[torch.Tensor], hot_t: bool = False) -> None:
+        """The prologue (split, bf16) and the kernel into ``out`` and a zeroed
+        ``hot``, neither checked nor counted: the body of a call, and
+        chip_smoke.py's timings (``hot`` None skips the hot side's
+        atomics)."""
+        n, k = d.shape
+        d_planes = (d, d_lo) if variant == SPLIT else (d,)
+        vec_ok = int(k * d.element_size() % 16 == 0
+                     and all(p.data_ptr() % 16 == 0 for p in d_planes))
+        if variant != F32:
+            x, xh = self.planes(variant, x), self.planes(variant, xh)
         with torch.cuda.device(d.device):
             stream = torch.cuda.current_stream(d.device).cuda_stream
             self.lib.launch(
                 "fused_dual", variant, int(hot_t), d.data_ptr(),
                 d_lo.data_ptr() if variant == SPLIT else None, x.data_ptr(), xh.data_ptr(),
-                n, k, h, vec_ok, out.data_ptr(), hot.data_ptr(), stream,
+                n, k, out.shape[1], vec_ok,
+                out.data_ptr(), None if hot is None else hot.data_ptr(), stream,
             )
-        key = VARIANT_NAMES[variant] + ("_t" if hot_t else "")
-        self.launches[key] = self.launches.get(key, 0) + 1
-        return out, hot
 
 
 fused_dual_kernel = FusedDualKernel()
@@ -209,7 +263,7 @@ class FusedDualFunction(torch.autograd.Function):
 def fused_dual_split(dhi: torch.Tensor, dlo: torch.Tensor, x: torch.Tensor,
                      xh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(D @ xh, D^T @ x)`` with ``D = dhi + dlo`` (a bf16 pair), reading
-    the pair once; x and xh f32, split to hi/lo inside."""
+    the pair once; x and xh f32, split to hi/lo once per launch."""
     return FusedDualFunction.apply(x.float(), xh.float(), dhi, dlo, SPLIT, False)
 
 

@@ -147,8 +147,12 @@ def test_gcn_on_card_matches_cpu(cuda):
 from pytextgcn_tpu_torch.ops import fused_dual as fd  # noqa: E402
 from pytextgcn_tpu_torch.ops.spmm import spmm, spmm_segment  # noqa: E402
 
+# main-path widths; N, K and H off the tiles (K = 100: D rows off 16 bytes
+# in bf16); two column blocks (H = 130); K < 32 and H = 1; N one row past a
+# 128-row slab at the widths where the column tiling changes (48, 49); an
+# odd K
 DUAL_SHAPES = [(3000, 512, 100), (3000, 512, 43), (1001, 100, 19), (777, 200, 130),
-               (129, 7, 1)]
+               (129, 7, 1), (129, 96, 48), (129, 96, 49), (1000, 333, 43)]
 
 
 def _dual_operands(variant, n, k, h, device, seed=0):
@@ -212,6 +216,65 @@ def test_f32_kernel_is_three_tf32_passes(cuda, shape, hot_t):
     emu_out, emu_hot = fd.dual_reference_tf32x3(d, x, xh)
     _assert_close(out, emu_out, mag_out, rtol=5e-6, atol=0)
     _assert_close(hot, emu_hot, mag_hot, rtol=5e-6, atol=0)
+
+
+@pytest.mark.parametrize("hot_t", [False, True], ids=["hot_KH", "hot_HK"])
+@pytest.mark.parametrize("variant", [fd.SPLIT, fd.BF16, fd.F32], ids=["split", "bf16", "f32"])
+def test_dual_kernel_unaligned_d(cuda, variant, hot_t):
+    """D whose pointer is off 16 bytes (vec_ok 0: D copied element by
+    element) against the same D aligned."""
+    d, d_lo, x, xh = _dual_operands(variant, 300, 256, 100, cuda, seed=5)
+    planes = []
+    for plane in (d, d_lo) if variant == fd.SPLIT else (d,):
+        buf = torch.empty(plane.numel() + 1, dtype=plane.dtype, device=cuda)
+        planes.append(buf[1:].view_as(plane))
+        planes[-1].copy_(plane)
+    assert planes[0].data_ptr() % 16
+    out, hot = fd.fused_dual_kernel(variant, planes[0], planes[-1] if variant == fd.SPLIT
+                                    else None, x, xh, hot_t=hot_t)
+    hot = hot.t() if hot_t else hot
+    want_out, want_hot = fd.dual_reference(variant, d, d_lo, x, xh)
+    mag_out, mag_hot = fd.dual_abs(variant, d, d_lo, x, xh)
+    _assert_close(out, want_out, mag_out)
+    _assert_close(hot, want_hot, mag_hot)
+
+
+@pytest.mark.parametrize("shape", [(3000, 512, 100), (3000, 512, 43), (1000, 333, 43)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("variant", [fd.SPLIT, fd.BF16], ids=["split", "bf16"])
+def test_dual_out_repeats_bit_for_bit(cuda, variant, shape):
+    """out is summed in registers and written once by one block: the same
+    bits on every launch (hot is added by reductions in no fixed order)."""
+    ops = _dual_operands(variant, *shape, cuda, seed=6)
+    first = fd.fused_dual_kernel(variant, *ops)[0]
+    assert all(torch.equal(first, fd.fused_dual_kernel(variant, *ops)[0]) for _ in range(3))
+
+
+@pytest.mark.parametrize("h", [1, 19, 43, 100, 130])
+@pytest.mark.parametrize("variant", [fd.SPLIT, fd.BF16], ids=["split", "bf16"])
+def test_prologue_planes_equal_plain_bit_for_bit(cuda, variant, h):
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    a = torch.randn(777, h, generator=gen, device=cuda) * 10.0 ** torch.randint(
+        -5, 5, (777, h), generator=gen, device=cuda)
+    a = a if variant == fd.SPLIT else a.bfloat16()
+    got = fd.fused_dual_kernel.planes(variant, a)
+    want = fd.operand_planes(variant, a)
+    assert got.shape == want.shape == ((2 if variant == fd.SPLIT else 1), 777, fd.pad_width(h))
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("layout", ["fused_dual_split", "fused_dual"])
+def test_one_dual_product_is_one_launch(cuda, layout):
+    """The prologue (the split and bf16 planes of x and xh) is part of the
+    launch it serves: one dual product counts one launch."""
+    d, _, x, xh = _dual_operands(fd.F32, 500, 128, 100, cuda, seed=7)
+    operands = fd.split_bf16(d) if layout == "fused_dual_split" else (d.bfloat16(),)
+    key = "split" if layout == "fused_dual_split" else "bf16"
+    before = dict(fd.fused_dual_kernel.launches)
+    getattr(fd, layout)(*operands, x, xh)
+    after = dict(fd.fused_dual_kernel.launches)
+    assert after.pop(key) == before.pop(key, 0) + 1
+    assert after == before
 
 
 @pytest.mark.parametrize("shape", DUAL_SHAPES[:3], ids=lambda s: "x".join(map(str, s)))
