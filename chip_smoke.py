@@ -10,11 +10,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases, each fatal (exit code 1, no result line) when it fails:
 
 1. build: the two CUDA kernels (``csrc/spmm_csr.cu``, ``csrc/fused_dual.cu``,
-   nvcc for sm_90a, their ptxas registers and spills), four timing builds
-   of the dual kernel (f32: one TF32 pass, no split; split: one bf16 pass;
-   split and bf16: float4 hot atomics) and the native host library (g++),
-   side by side; print the card and its power limit as nvidia-smi gives
-   them.
+   nvcc for sm_90a, their ptxas registers and spills), three timing builds
+   of the CSR kernel (every row read from L1, no row reads, cache hints:
+   ``CSR_TIMING_BUILDS``), four of the dual kernel (f32: one TF32
+   pass, no split; split: one bf16 pass; split and bf16: float4 hot
+   atomics) and the native host library (g++), side by side; print the
+   card and its power limit as nvidia-smi gives them.
 2. graph: the synthetic-amazon corpus (50k docs) through the port's flat
    experiment (``load_corpus`` -> ``Text2Graph``); print N and E.
 3. check: the CSR kernel against its plain PyTorch version on the card, on
@@ -49,7 +50,9 @@ Phases, each fatal (exit code 1, no result line) when it fails:
 9. times: each kernel, its plain version, its library yardstick (used
    nowhere in the port: ``torch.sparse.mm`` for the CSR kernel, the two
    ``torch.mm`` of the dense pair for the dual kernel) and its bound per
-   launch, the split and bf16 variants with their prologue; the split, bf16
+   launch, the split and bf16 variants with their prologue; the CSR
+   kernel's timing builds beside it in turns, at both widths on both
+   plans, with H = 43 against x padded to 44 by hand; the split, bf16
    and f32 dual kernels without the hot side's reduction, and the split and
    bf16 ones with float4 atomics in place of their bulk reduction; the f32
    and split variants' timing builds beside them, in turns (what limits
@@ -126,6 +129,43 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# timing builds of csrc/spmm_csr.cu (phase 9), never used for results:
+# name -> (nvcc flags, what the build leaves out or changes)
+CSR_TIMING_BUILDS = {
+    "l1_resident": (["-DSPMM_L1_RESIDENT"],
+                    "gather x[col & 511]: every row read hits L1, no L2 traffic for x"),
+    "no_gather": (["-DSPMM_NO_GATHER"],
+                  "no x loads: the (col, val) stream, its broadcast and the FMAs"),
+    "cache_hints": (["-DSPMM_CACHE_HINTS"],
+                    "(col, val) read and out written evict-first, x read L2 evict-last"),
+}
+
+
+def time_spmm_builds(kernel, builds: dict, plans: dict, widths, gen, reps: int = 30) -> list:
+    """Per width and plan: ms per launch of ``kernel`` (key "kernel") and
+    of each of ``builds`` in turns (each in order, then in reverse), and, at
+    a width that is not a multiple of 4, the kernel on x padded to one by
+    hand ("padded_to_4") and the pad copy ("pad_copy"). Each value is a
+    list of times, one per turn."""
+    import torch
+
+    rows = []
+    for h in widths:
+        for pname, csr in plans.items():
+            x = torch.randn(csr.n_cols, h, generator=gen, device=csr.device)
+            cases = {"kernel": lambda: kernel(csr, x)}
+            cases.update((name, (lambda b: lambda: b(csr, x))(b)) for name, b in builds.items())
+            if h % 4:
+                xp = torch.nn.functional.pad(x, (0, -h % 4))
+                cases["padded_to_4"] = lambda: kernel(csr, xp)
+                cases["pad_copy"] = lambda: xp[:, :h].copy_(x)
+            row = {"h": h, "plan": pname, **{name: [] for name in cases}}
+            for name in list(cases) + list(cases)[::-1]:
+                row[name].append(time_ms(cases[name], reps))
+            rows.append(row)
+    return rows
 
 
 def compare(name: str, got, want, scale, rtol: float, atol: float = ATOL) -> float:
@@ -260,17 +300,21 @@ def main(argv=None) -> int:
                   "no split": fd.FusedDualKernel(["-DFD_TF32_NO_SPLIT"], "_nosplit")}
     split_1pass = fd.FusedDualKernel(["-DFD_SPLIT_PASSES=1"], "_split1pass")
     hot_float4 = fd.FusedDualKernel(["-DFD_HOT_ATOMICS"], "_hotatomics")
-    with ThreadPoolExecutor(7) as pool:
+    csr_timing = {name: spmm_cuda.SpmmCsrKernel(flags, "_" + name)
+                  for name, (flags, _) in CSR_TIMING_BUILDS.items()}
+    with ThreadPoolExecutor(10) as pool:
         builds = [pool.submit(kernel.build, True), pool.submit(dual.build, True)]
         timing_builds = [pool.submit(v.build)
-                         for v in (*f32_timing.values(), split_1pass, hot_float4)]
+                         for v in (*f32_timing.values(), split_1pass, hot_float4,
+                                   *csr_timing.values())]
         native_build = pool.submit(load_native)
         ptxas = [b.result() for b in builds]
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/9] built the two CUDA kernels (and four timing builds of the dual kernel) and "
-        f"the native library in {time.perf_counter() - t0:.1f}s; ptxas:")
+    log(f"[1/9] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
+        f"kernel, four of the dual kernel) and the native library in "
+        f"{time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -585,7 +629,8 @@ def main(argv=None) -> int:
         xb = x.bfloat16()
         row = {"h": h}
         for pname, csr in (("fwd", plan.fwd), ("bwd", plan.bwd)):
-            lib = torch.sparse_csr_tensor(csr.row_ptr, csr.col, csr.val,
+            lib = torch.sparse_csr_tensor(csr.row_ptr, csr.col.contiguous(),
+                                          csr.val.contiguous(),
                                           size=(csr.n_rows, csr.n_cols),
                                           check_invariants=False)
             compare(f"torch.sparse.mm {pname} H={h} vs kernel", torch.sparse.mm(lib, x),
@@ -608,6 +653,13 @@ def main(argv=None) -> int:
     # a train step: 2 launches at each width, forward and transpose plans
     per_launch = [row[p] for row in by_width for p in ("fwd", "bwd")]
     mean = lambda k: sum(r[k] for r in per_launch) / len(per_launch)
+    # what limits the CSR kernel: its timing builds beside it, in turns
+    csr_limits = time_spmm_builds(kernel, csr_timing, {"fwd": plan.fwd, "bwd": plan.bwd},
+                                  widths, gen)
+    for row in csr_limits:
+        log(f"  spmm_csr {row['plan']} H={row['h']}, timing builds (ms, in turns): " + "; ".join(
+            f"{name} {[round(v, 4) for v in vals]}" for name, vals in row.items()
+            if name not in ("h", "plan")))
 
     # the dual kernel per launch at the main path's shape (x_hot = x[hot] and
     # the backward's (g_out, g_hot) have the same shapes), each variant
@@ -812,6 +864,7 @@ def main(argv=None) -> int:
         "by_width": by_width,
         "graph": {"n_nodes": n, "n_edges": e},
         "launches_hybrid_path": hcounts["csr"],
+        "timing_builds": csr_limits,
         "step_ms": step_ms,
         "peak_memory_gb": peak_gb,
     },

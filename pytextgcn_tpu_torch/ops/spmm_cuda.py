@@ -41,17 +41,19 @@ _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class CsrPlan:
     """One direction of ``A`` as a row-sorted CSR ``[n_rows, n_cols]``.
 
-    ``row_ptr``/``col``/``val`` are the CSR arrays (edges of a row keep
-    their input order). ``seg_ptr``/``seg_row``/``seg_slot`` cut each row
-    into segments of at most ``SEG_EDGES`` edges (an empty row has one
-    empty segment); ``seg_slot`` is -1 for a row that is one segment, else
-    the scratch row its partial sum goes to. ``split_row``/``split_ptr``
-    list the cut rows and their scratch-row ranges.
+    ``row_ptr`` is the CSR row pointer. ``pairs`` holds each edge's column
+    and the float32 bits of its weight in CSR order (edges of a row keep
+    their input order), so the kernel reads both in one 8-byte load;
+    ``col`` and ``val`` are views of it. ``seg_ptr``/``seg_row``/
+    ``seg_slot`` cut each row into segments of at most ``SEG_EDGES`` edges
+    (an empty row has one empty segment); ``seg_slot`` is -1 for a row that
+    is one segment, else the scratch row its partial sum goes to.
+    ``split_row``/``split_ptr`` list the cut rows and their scratch-row
+    ranges.
     """
 
     row_ptr: torch.Tensor  # int32 [n_rows + 1]
-    col: torch.Tensor  # int32 [E]
-    val: torch.Tensor  # float32 [E]
+    pairs: torch.Tensor  # int32 [E, 2]: (col, val bits)
     seg_ptr: torch.Tensor  # int32 [S + 1]
     seg_row: torch.Tensor  # int32 [S]
     seg_slot: torch.Tensor  # int32 [S]
@@ -63,11 +65,19 @@ class CsrPlan:
 
     @property
     def n_edges(self) -> int:
-        return int(self.col.shape[0])
+        return int(self.pairs.shape[0])
+
+    @property
+    def col(self) -> torch.Tensor:  # int32 [E]
+        return self.pairs[:, 0]
+
+    @property
+    def val(self) -> torch.Tensor:  # float32 [E]
+        return self.pairs[:, 1].view(torch.float32)
 
     @property
     def device(self) -> torch.device:
-        return self.col.device
+        return self.pairs.device
 
 
 @dataclasses.dataclass
@@ -113,10 +123,10 @@ def build_csr_plan(rows, cols, w, n_rows: int, n_cols: int,
     def put(a, dtype=torch.int32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
+    pairs = np.stack([cols[order].astype(np.int32), w[order].view(np.int32)], axis=1)
     return CsrPlan(
         row_ptr=put(row_ptr),
-        col=put(cols[order]),
-        val=put(w[order], torch.float32),
+        pairs=put(pairs),
         seg_ptr=put(seg_ptr),
         seg_row=put(seg_row),
         seg_slot=put(seg_slot),
@@ -146,16 +156,20 @@ def build_plan_from_arrays(src, dst, w, n_nodes: int, compute_dtype: str = "floa
 # ------------------------------------------------------------ plain version
 
 
-def spmm_csr_reference(csr: CsrPlan, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` in plain PyTorch over the plan's CSR arrays: gather,
-    weight, ``index_add_``. Accumulates in float32 whatever x's dtype."""
+def _csr_sum(csr: CsrPlan, val: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     rows = torch.repeat_interleave(
         torch.arange(csr.n_rows, device=x.device),
         (csr.row_ptr[1:] - csr.row_ptr[:-1]).long(),
     )
-    contrib = csr.val[:, None] * x[csr.col.long()].float()
+    contrib = val[:, None] * x[csr.col.long()].float()
     out = torch.zeros(csr.n_rows, x.shape[1], dtype=torch.float32, device=x.device)
     return out.index_add_(0, rows, contrib)
+
+
+def spmm_csr_reference(csr: CsrPlan, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` in plain PyTorch over the plan's CSR arrays: gather,
+    weight, ``index_add_``. Accumulates in float32 whatever x's dtype."""
+    return _csr_sum(csr, csr.val, x)
 
 
 def spmm_csr_abs(csr: CsrPlan, x: torch.Tensor) -> torch.Tensor:
@@ -163,7 +177,7 @@ def spmm_csr_abs(csr: CsrPlan, x: torch.Tensor) -> torch.Tensor:
     magnitudes. Summing the terms in another order moves the result by a
     multiple of eps times this (not of the result, which may cancel to near
     zero), so kernel-vs-plain checks scale their tolerance by it."""
-    return spmm_csr_reference(dataclasses.replace(csr, val=csr.val.abs()), x.abs())
+    return _csr_sum(csr, csr.val.abs(), x.abs())
 
 
 # ------------------------------------------------------------------- kernel
@@ -171,13 +185,16 @@ def spmm_csr_abs(csr: CsrPlan, x: torch.Tensor) -> torch.Tensor:
 
 class SpmmCsrKernel:
     """The compiled kernel: builds and loads it once, launches it, and
-    counts its launches in ``launches`` (one per SpMM call)."""
+    counts its launches in ``launches`` (one per SpMM call). ``flags`` and
+    ``tag`` make a timing build (``-D`` macros of ``csrc/spmm_csr.cu``),
+    never used for a result."""
 
-    def __init__(self):
+    def __init__(self, flags=(), tag: str = ""):
         self.launches = 0
         p, i = ctypes.c_void_p, ctypes.c_int
         self.lib = CudaLibrary("spmm_csr.cu", "spmm_csr_launch",
-                               [p, p, p, i, p, p, p, i, i, i, p, p, p, p, i, p])
+                               [p, p, p, i, p, p, i, i, i, p, p, p, p, i, p],
+                               flags=flags, tag=tag)
 
     def build(self, verbose: bool = False) -> str:
         """Compile ``csrc/spmm_csr.cu`` if needed; see :meth:`CudaLibrary.build`."""
@@ -195,18 +212,22 @@ class SpmmCsrKernel:
         if not x.is_contiguous():
             raise ValueError("x must be contiguous")
         h = int(x.shape[1])
-        if -(-h // 32) > 65535:  # one grid.y block per 32 columns
+        ld = -(-h // 4) * 4  # the kernel reads 4 columns a lane
+        if -(-ld // 128) > 65535:  # one grid.y block per 128 columns
             raise ValueError(f"H={h} is too wide for the kernel's grid")
+        if ld != h:  # rows of 16 (f32) or 8 (bf16) bytes
+            x = torch.nn.functional.pad(x, (0, ld - h))
+        elif x.data_ptr() % (4 * x.element_size()):
+            x = x.clone()
         out = torch.empty(csr.n_rows, h, dtype=torch.float32, device=x.device)
-        partial = torch.empty(csr.n_partials, h, dtype=torch.float32, device=x.device)
-        vec = 4 if (h % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0) else 1
+        partial = torch.empty(csr.n_partials, ld, dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             self.lib.launch(
                 "spmm_csr",
                 csr.seg_ptr.data_ptr(), csr.seg_row.data_ptr(), csr.seg_slot.data_ptr(),
-                int(csr.seg_row.shape[0]), csr.col.data_ptr(), csr.val.data_ptr(),
-                x.data_ptr(), 0 if x.dtype == torch.float32 else 1, h, vec,
+                int(csr.seg_row.shape[0]), csr.pairs.data_ptr(), x.data_ptr(),
+                0 if x.dtype == torch.float32 else 1, h, ld,
                 out.data_ptr(), partial.data_ptr() if csr.n_partials else None,
                 csr.split_row.data_ptr(), csr.split_ptr.data_ptr(),
                 int(csr.split_row.shape[0]), stream,

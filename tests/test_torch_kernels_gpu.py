@@ -142,6 +142,92 @@ def test_gcn_on_card_matches_cpu(cuda):
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-5, atol=1e-5)
 
 
+def _long_row_plan(rng, n_rows, n_cols, device):
+    """Three rows far over SEG_EDGES (cut into many segments), about half
+    the rows empty, the rest a few edges each."""
+    seg = spmm_cuda.SEG_EDGES
+    long_rows = np.repeat([0, 7, n_rows - 1], [20 * seg + 3, 3 * seg, 5 * seg + 2])
+    short = rng.integers(0, n_rows // 2, 6000) * 2 + 1  # odd rows only
+    rows = np.r_[long_rows, short[short < n_rows]]
+    cols = rng.integers(0, n_cols, rows.shape[0])
+    w = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    return spmm_cuda.build_csr_plan(rows, cols, w, n_rows, n_cols, device)
+
+
+# the main path's widths (100, 43: two edges a warp), 43 padded by hand
+# (44), one 4-column vector a row (1, 4: 32 edges a warp), two edges a warp
+# (48, 64), a row padded to 100 (97), one full 128-column block and two
+# blocks (128, 130)
+WIDTHS = [1, 4, 43, 44, 48, 64, 97, 100, 128, 130]
+
+
+@pytest.mark.parametrize("h", WIDTHS)
+def test_kernel_widths_long_and_empty_rows(cuda, h):
+    rng = np.random.default_rng(100 + h)
+    csr = _long_row_plan(rng, 900, 900, cuda)
+    assert csr.n_partials > 30
+    x = torch.randn(900, h, device=cuda)
+    before = spmm_cuda.spmm_csr_kernel.launches
+    got = spmm_cuda.spmm_csr_kernel(csr, x)
+    assert spmm_cuda.spmm_csr_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x), spmm_cuda.spmm_csr_abs(csr, x))
+    empty = torch.ones(900, dtype=torch.bool, device=cuda)
+    empty[csr.seg_row[csr.seg_ptr[1:] > csr.seg_ptr[:-1]].long()] = False
+    assert empty.sum() > 400 and not got[empty].any()  # exact zeros
+    assert torch.equal(got, spmm_cuda.spmm_csr_kernel(csr, x))  # no atomics
+
+
+@pytest.mark.parametrize("h", [43, 100])
+@pytest.mark.parametrize("shape", [(700, 1900), (1900, 700)], ids=["wide", "tall"])
+def test_kernel_rectangular_plan(cuda, shape, h):
+    n_rows, n_cols = shape
+    rng = np.random.default_rng(h)
+    csr = _long_row_plan(rng, n_rows, n_cols, cuda)
+    x = torch.randn(n_cols, h, device=cuda)
+    got = spmm_cuda.spmm_csr_kernel(csr, x)
+    assert got.shape == (n_rows, h)
+    _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x), spmm_cuda.spmm_csr_abs(csr, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [43, 100])
+def test_kernel_x_off_16_bytes(cuda, dtype, h):
+    """An x whose data pointer is off 16-byte alignment (a view one element
+    into its storage) gives what an aligned copy gives, and stays as it
+    was."""
+    csr = _long_row_plan(np.random.default_rng(3), 600, 600, cuda)
+    base = torch.randn(600 * h + 1, device=cuda).to(dtype)
+    x = base[1:].view(600, h)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = x.clone()
+    got = spmm_cuda.spmm_csr_kernel(csr, x)
+    assert torch.equal(x, before)
+    assert torch.equal(got, spmm_cuda.spmm_csr_kernel(csr, x.clone()))
+    _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x), spmm_cuda.spmm_csr_abs(csr, x))
+
+
+@pytest.mark.parametrize("h", [1, 4, 43, 100, 130])
+def test_kernel_bf16_widths(cuda, h):
+    csr = _long_row_plan(np.random.default_rng(h), 900, 900, cuda)
+    x = torch.randn(900, h, device=cuda).bfloat16()
+    got = spmm_cuda.spmm_csr_kernel(csr, x)
+    assert got.dtype == torch.float32
+    _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x), spmm_cuda.spmm_csr_abs(csr, x))
+    assert torch.equal(got, spmm_cuda.spmm_csr_kernel(csr, x))
+
+
+@pytest.mark.parametrize("h", [43, 100])
+def test_kernel_pads_narrow_rows_like_a_padded_x(cuda, h):
+    """The wrapper's padded copy of x (rows of a multiple of 4 columns)
+    gives bit for bit what the kernel gives on an x padded by hand."""
+    csr = _long_row_plan(np.random.default_rng(9), 900, 900, cuda)
+    x = torch.randn(900, h, device=cuda)
+    xp = torch.nn.functional.pad(x, (0, -h % 4 + 4))
+    assert torch.equal(spmm_cuda.spmm_csr_kernel(csr, x),
+                       spmm_cuda.spmm_csr_kernel(csr, xp)[:, :h])
+
+
 # ------------------------------------------------- the dual kernel (fused_dual.cu)
 
 from pytextgcn_tpu_torch.ops import fused_dual as fd  # noqa: E402
