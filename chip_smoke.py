@@ -60,6 +60,19 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    the hybrid SpMM per application; train steps on the CSR, hybrid and
    plain paths; peak memory; and the split kernel at K = 1024, 2048 and
    4096.
+10. models and hierarchies, on the CSR kernel and phase 2's graph at full
+   width, ``MODEL_EPOCHS`` epochs each: the flat experiment with EGCN
+   (embedding 2000, hidden 100) and with the JK network (hidden 100), the
+   per-level experiment (Cat1 -> Cat2), the per-label experiment (one GCN
+   for each of the 6 Cat1 classes) writing its members with
+   ``--save-model`` to a temporary directory, and ``--eval-only`` reading
+   them back, which must give the same predictions; the per-level and
+   per-label runs must each write their results row. On each path the
+   kernel must launch exactly 4 times per train step plus 2 per
+   forward-only pass of every level or member, each loss must be finite
+   and fall (a member with one class has a loss of exactly 0), and the
+   kernel must match its plain version at every width the path ran; each
+   path's train step time and peak memory are printed.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -85,6 +98,7 @@ PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_TF32_FLOP_PER_S = 495e12
 HOT_K = 4096  # the hybrid's hot-set size on the main path
+MODEL_EPOCHS = 5  # epochs of each phase-10 path (a level or member each)
 K_SWEEP = (1024, 2048, 4096)
 
 # Tolerances are relative to the sum of the terms' magnitudes (|A| @ |x|,
@@ -202,6 +216,50 @@ def device_busy_us(trace_path: str) -> float:
     return busy
 
 
+def profile_step(out_dir: str, card: str, title: str, tag: str, step, step_ms: float) -> float:
+    """torch.profiler over 5 calls of ``step``: writes its table and chrome
+    trace under ``out_dir`` and returns the device's busy ms a step (the
+    union of its kernel, memcpy and memset spans)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+    trace = os.path.join(out_dir, f"trace_train_step_{tag}.json")
+    prof.export_chrome_trace(trace)
+    busy_ms = device_busy_us(trace) / 5 / 1e3
+    # the profiler slows the host, so idle is read against the step time
+    # measured just before without it
+    summary = (f"device busy {busy_ms:.3f} ms a step (union of kernel, memcpy and memset "
+               f"spans); host clock {step_ms:.3f} ms a step unprofiled ({host_ms:.3f} under "
+               f"the profiler): device idle {1 - busy_ms / step_ms:.1%} of the unprofiled step")
+    with open(os.path.join(out_dir, f"profile_train_step_{tag}.txt"), "w") as f:
+        f.write(f"{card}\n5 train steps, {title}\n{summary}\n{table}\n")
+    log(table)
+    log(f"  {title}: {summary}")
+    return busy_ms
+
+
+def host_step_ms(step, reps: int = 20, warmup: int = 3) -> float:
+    """Mean host-clock ms of ``step`` over ``reps`` calls, synchronized."""
+    import torch
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def spmm_work(csr, h: int, x_bytes: int):
     """Bytes the product must move (plan read once, x read once, out
     written once) and its FMA operations, for this plan's edges."""
@@ -249,13 +307,188 @@ def run_path(flat, cfg, g, n_classes, counters):
     return res, secs, {name: read() for name, (_, read) in counters.items()}
 
 
+def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan, counters, gen,
+                           dev):
+    """Phase 10: the EGCN and JK flat paths, the per-level and per-label
+    paths and the per-label ``--save-model`` / ``--eval-only`` round trip on
+    ``g`` (phase 2's graph), each driven with the launch counts set to 0
+    just before it. Returns (per-path summaries, the widths the paths ran,
+    the kernel's errors against its plain version at those widths)."""
+    import numpy as np
+    import torch
+
+    from pytextgcn_tpu_torch.config import check_ported, parse_config
+    from pytextgcn_tpu_torch.experiments import common, flat, perlabel, perlevel
+    from pytextgcn_tpu_torch.ops import spmm_cuda
+
+    kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
+                          spmm_cuda.spmm_csr_abs)
+    n, e = g.n_nodes, g.n_edges
+    log(f"[10/10] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
+        "level or member):")
+    _, (cat1, cat2), _, _ = common.load_corpus(cfg, levels=["Cat1", "Cat2"])
+    if not np.array_equal(cat2, np.asarray(g.y)[g.n_vocab:]):
+        fail("the corpus's Cat2 labels differ from phase 2's graph")
+    test_docs = np.asarray(g.test_mask)[g.n_vocab:]
+    p10 = ["--dataset", "synthetic-amazon", "--n-docs", str(args.n_docs),
+           "--model-n-hidden", str(hidden), "--model-dropout", "0.7", "--train-lr", "0.05",
+           "--train-epochs", str(MODEL_EPOCHS), "--train-eval-every", "1",
+           "--train-verbose", "0", "--train-use-pallas", "true"]
+
+    def drive(fn, *fn_args, **fn_kw):
+        """``fn`` with every launch count set to 0 just before it; returns its
+        result, the seconds, the counts just after, and the peak memory
+        above what was held before it (GB)."""
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for reset, _ in counters.values():
+            reset()
+        t0 = time.perf_counter()
+        out = fn(*fn_args, **fn_kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {name: read() for name, (_, read) in counters.items()}
+        return out, secs, counts, (torch.cuda.max_memory_allocated() - mem0) / 1e9
+
+    def passes(hist):
+        """Launches a fit makes: 4 a train step, 2 an evaluation."""
+        return 4 * len(hist) + 2 * sum("val_f1" in rec for rec in hist)
+
+    def check_losses(label, hist, n_out):
+        losses = [rec["loss"] for rec in hist]
+        if len(losses) != MODEL_EPOCHS or not np.isfinite(losses).all():
+            fail(f"{label}: {len(losses)} steps, losses {losses}")
+        if n_out == 1:  # one class: the cross-entropy is exactly 0
+            if any(losses):
+                fail(f"{label}: a one-class member's losses {losses} are not 0")
+        elif not losses[-1] < losses[0]:
+            fail(f"{label}: the loss did not fall: {losses}")
+        return f"{losses[0]:.4f} -> {losses[-1]:.4f}"
+
+    y0 = torch.zeros(n, dtype=torch.int64, device=dev)  # a label every width takes
+    mask_dev = torch.as_tensor(g.train_mask, device=dev)
+    paths, widths_run = {}, set()
+
+    def record(name, trainers, secs, counts, expected, peak_gb, summary, timed):
+        """Checks the path's launch count, notes its widths, and times a
+        train step of ``timed`` (one of its trainers; None: no timing)."""
+        if counts["csr"] != expected or counts["dual"]:
+            fail(f"{name}: launches {counts}, expected {expected} CSR launches")
+        widths = sorted({layer.w.shape[1] for t in trainers for layer in t.model.layers})
+        widths_run.update(widths)
+        entry = {"seconds": secs, "launches": counts["csr"], "widths": widths,
+                 "peak_memory_gb": peak_gb}
+        timing = ""
+        if timed is not None:
+            step = lambda: timed._train_step(timed._adj, timed._feats, y0, mask_dev)
+            entry["step_ms"] = host_step_ms(step, reps=10)
+            timing = f"; train step {entry['step_ms']:.3f} ms (host clock"
+            if args.profile:
+                entry["device_busy_ms"] = profile_step(
+                    args.profile, card, f"{name}, N={n} E={e}", name.replace(" ", "_"),
+                    step, entry["step_ms"])
+                timing += f", device busy {entry['device_busy_ms']:.3f}"
+            timing += ")"
+        paths[name] = entry
+        log(f"  {name} in {secs:.1f}s: CSR launches {counts['csr']} (expected {expected}); "
+            f"{summary}; widths {widths}{timing}; peak memory {peak_gb:.2f} GB above what "
+            "was held before it")
+
+    # EGCN at the protocols' lr 0.05 first climbs (Adam moves every embedding
+    # weight by 0.05 a step, over 10x its init range) and is not back under
+    # its first loss in 40 epochs; at 0.005 it falls from the first steps
+    for model_name, extra in (("egcn", ["--train-lr", "0.005"]), ("jk", [])):
+        mcfg = parse_config(p10 + ["--model-model", model_name] + extra)
+        check_ported(mcfg)
+        with tempfile.TemporaryDirectory() as tmp:
+            mcfg.result_file = os.path.join(tmp, "results.csv")
+            res, secs, counts, peak = drive(flat.run, mcfg, g, n_classes)
+        model = res["trainer"].model
+        if model_name == "egcn" and tuple(model.embed.w.shape) != (n, 2000):
+            fail(f"egcn: embedding {tuple(model.embed.w.shape)}, expected ({n}, 2000)")
+        loss = check_losses(model_name, res["history"], n_classes)
+        record(f"{model_name} flat", [res["trainer"]], secs, counts,
+               passes(res["history"]) + 2, peak,
+               f"loss {loss}, test acc {res['accuracy']:.4f}, macro-F1 {res['f1_macro']:.4f}",
+               res["trainer"])
+        del res, model
+
+    rows_dir = tempfile.TemporaryDirectory()
+    rows_file = os.path.join(rows_dir.name, "results.csv")
+    lcfg = parse_config(p10 + ["--result-file", rows_file])
+    check_ported(lcfg)
+    res, secs, counts, peak = drive(perlevel.run, lcfg, g, [cat1, cat2])
+    losses = [check_losses(f"per-level level {i + 1}", h, w)
+              for i, (h, w) in enumerate(zip(res["histories"], (6, n_classes)))]
+    if tuple(res["trainers"][1]._feats.hierarchy.shape) != (g.n_docs, 6):
+        fail("per-level: level 2 does not carry the Cat1 columns")
+    # each level's fit, level 1's softmax on its own graph, the final evaluation
+    record("gcn per-level", res["trainers"], secs, counts,
+           sum(passes(h) for h in res["histories"]) + 2 + 2, peak,
+           f"losses {losses}, test acc {res['accuracy']:.4f}, macro-F1 {res['f1_macro']:.4f}",
+           res["trainers"][-1])  # level 2: the Cat2 head on the Cat1 columns
+    del res
+
+    with tempfile.TemporaryDirectory() as models_dir:
+        pcfg = parse_config(p10 + ["--save-model", models_dir, "--result-file", rows_file])
+        check_ported(pcfg)
+        res, secs, counts, peak = drive(perlabel.run, pcfg, g, cat1, cat2)
+        if len(res["trainers"]) != 6:
+            fail(f"per-label: {len(res['trainers'])} members, expected 6")
+        sizes = [len(res["mapping"][c]) for c in range(6)]
+        losses = [check_losses(f"per-label member {c}", h, size)
+                  for c, (h, size) in enumerate(zip(res["histories"], sizes))]
+        routed = sum(bool(((cat1 == c) & test_docs).any()) for c in range(6))
+        record("gcn per-label", res["trainers"], secs, counts,
+               sum(passes(h) for h in res["histories"]) + 2 * routed, peak,
+               f"6 members of {sizes} classes, losses {losses}, test acc "
+               f"{res['accuracy']:.4f}, macro-F1 {res['f1_macro']:.4f}",
+               res["trainers"][int(np.argmax(sizes))])  # the member with the most classes
+        back, secs, counts, peak = drive(perlabel.run, pcfg, g, cat1, cat2, eval_only=True)
+        if not np.array_equal(back["predictions"], res["predictions"]):
+            fail("per-label --eval-only: predictions differ from the trained ensemble's")
+        record("gcn per-label --eval-only", back["trainers"], secs, counts, 2 * routed, peak,
+               f"{len(os.listdir(models_dir))} files read back, the same predictions, test "
+               f"acc {back['accuracy']:.4f}", None)
+        del res, back
+    with open(rows_file) as f:
+        rows = [line.split(",")[:3] for line in f.read().splitlines()]
+    rows_dir.cleanup()
+    want = [["seed", "model", "hierarchy"]] + [["44", "GCN", h]
+                                               for h in ("per-level", "per-label", "per-label")]
+    if rows != want:
+        fail(f"results rows {rows}, expected {want}")
+    log(f"  results rows: {', '.join(r[2] for r in rows[1:])}")
+
+    # the kernel against its plain version, and its time, at every width
+    # these paths ran and at the dbpedia protocol's (9, 32, 70, 219), on
+    # this graph
+    errs, by_width = [], []
+    for h in sorted(widths_run | {9, 32, 70, 219}):
+        for pname, csr in (("fwd", plan.fwd), ("bwd", plan.bwd)):
+            x = torch.randn(n, h, generator=gen, device=dev)
+            errs.append(compare(f"f32 {pname} H={h}", kernel(csr, x), plain(csr, x),
+                                mag(csr, x), F32_RTOL))
+        x = torch.randn(n, h, generator=gen, device=dev)
+        _, _, bound, bound_by = spmm_work(plan.fwd, h, 4)
+        row = {"h": h, "ms": time_ms(lambda: kernel(plan.fwd, x), 20),
+               "plain_ms": time_ms(lambda: plain(plan.fwd, x), 3, warmup=1),
+               "bound_ms": bound, "bound_by": bound_by}
+        by_width.append(row)
+        log(f"  spmm_csr fwd H={h}: kernel {row['ms']:.4f} ms, bound {bound:.4f} ms by "
+            f"{bound_by}, plain {row['plain_ms']:.4f} ms")
+    torch.cuda.synchronize()
+    return paths, sorted(widths_run), errs, by_width
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=50_000)
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--profile", default=None,
                     help="directory for torch.profiler tables of 5 train steps on the CSR "
-                         "kernel path and on the hybrid path")
+                         "kernel path, on the hybrid path and on each phase-10 path")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "pytextgcn_tpu_torch")):
@@ -312,7 +545,7 @@ def main(argv=None) -> int:
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/9] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
+    log(f"[1/10] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
         f"kernel, four of the dual kernel) and the native library in "
         f"{time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
@@ -333,7 +566,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     g, n_classes = flat.build_graph(cfg)
     n, e = g.n_nodes, g.n_edges
-    log(f"[2/9] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
+    log(f"[2/10] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
         f"(vocab {g.n_vocab}, docs {g.n_docs}), {n_classes} classes")
     widths = (hidden, n_classes)
 
@@ -341,7 +574,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     adj = NormAdj.from_graph(g, use_pallas=True, device=dev)
     plan = adj.plan
-    log(f"[3/9] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
+    log(f"[3/10] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
         f"segments, {plan.fwd.n_partials} partial rows (fwd); checks:")
     gen = torch.Generator(device=dev).manual_seed(0)
     f32_errs, bf16_errs = [], []
@@ -401,7 +634,7 @@ def main(argv=None) -> int:
     evals = sum("val_f1" in rec for rec in hist) + 1  # + evaluate()
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
-    log(f"[4/9] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
+    log(f"[4/10] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
         f"passes, kernel launches {launches} (expected {expected}); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; test acc {res['accuracy']:.4f}, "
         f"macro-F1 {res['f1_macro']:.4f}; peak memory {peak_gb:.2f} GB")
@@ -456,14 +689,14 @@ def main(argv=None) -> int:
     plan_s = time.perf_counter() - t0
     k = hplan.k
     d_bytes = 2 * hplan.d_full.numel() * hplan.d_full.element_size()
-    log(f"[5/9] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
+    log(f"[5/10] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
         f"pair of {d_bytes / 1e6:.1f} MB), {hplan.n_resid} residual edges "
         f"({hplan.n_resid / e:.1%} of E) on the CSR kernel")
     if hplan.d_lo is None or tuple(hplan.d_full.shape) != (n, k) or k != HOT_K:
         fail(f"hybrid plan: K={k}, D {tuple(hplan.d_full.shape)}, split {hplan.d_lo is not None}")
 
     # ------------------------------------------------------------ 6. dual kernel
-    log("[6/9] the dual kernel against its plain version (tolerance relative to "
+    log("[6/10] the dual kernel against its plain version (tolerance relative to "
         "|D| @ |xh| and |D|^T @ |x|):")
     pair = (hplan.d_full, hplan.d_lo)
     d32 = pair[0].float() + pair[1].float()  # the f32 D of the f32 variant
@@ -535,7 +768,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 7. hybrid SpMM
-    log(f"[7/9] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
+    log(f"[7/10] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
         f"of |A_hat| @ |x|):")
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev, requires_grad=True)
@@ -573,7 +806,7 @@ def main(argv=None) -> int:
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
     path_launches = {"split": hcounts["dual"].get("split", 0)}
-    log(f"[8/9] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
+    log(f"[8/10] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
         f"{evals} forward-only passes; dual kernel launches {hcounts['dual']}, CSR kernel "
         f"launches {hcounts['csr']} (expected {expected} each); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; test acc {hres['accuracy']:.4f}, macro-F1 {hres['f1_macro']:.4f}; "
@@ -622,7 +855,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 9. times
-    log(f"[9/9] times on {card} (CUDA events, warm, per launch):")
+    log(f"[9/10] times on {card} (CUDA events, warm, per launch):")
     by_width = []
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev)
@@ -787,42 +1020,18 @@ def main(argv=None) -> int:
         y = torch.as_tensor(g.y, dtype=torch.int64, device=dev)
         mask = torch.as_tensor(g.train_mask, device=dev)
         step = lambda: trainer._train_step(tadj, tfeats, y, mask)
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            step()
-        torch.cuda.synchronize()
-        step_ms[path] = (time.perf_counter() - t0) / 20 * 1e3
+        step_ms[path] = host_step_ms(step)
         if path != "plain" and args.profile:
-            from torch.profiler import ProfilerActivity, profile
-
-            os.makedirs(args.profile, exist_ok=True)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(5):
-                    step()
-                torch.cuda.synchronize()
-                host_ms = (time.perf_counter() - t0) / 5 * 1e3
-            table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
-            trace = os.path.join(args.profile, f"trace_train_step_{path}.json")
-            prof.export_chrome_trace(trace)
-            busy_ms = device_busy_us(trace) / 5 / 1e3
-            # the profiler slows the host, so idle is read against the step
-            # time measured just before without it
-            summary = (f"device busy {busy_ms:.3f} ms a step (union of kernel, memcpy and "
-                       f"memset spans); host clock {step_ms[path]:.3f} ms a step "
-                       f"unprofiled ({host_ms:.3f} under the profiler): device idle "
-                       f"{1 - busy_ms / step_ms[path]:.1%} of the unprofiled step")
-            with open(os.path.join(args.profile, f"profile_train_step_{path}.txt"), "w") as f:
-                f.write(f"{card}\n5 train steps, {path} path, N={n} E={e}\n{summary}\n"
-                        f"{table}\n")
-            log(table)
-            log(f"  {path} path: {summary}")
+            profile_step(args.profile, card, f"{path} path, N={n} E={e}", path, step,
+                         step_ms[path])
     log(f"  train step (forward, loss, backward, Adam): CSR kernel path "
         f"{step_ms['kernel']:.3f} ms, hybrid path (K={HOT_K}) {step_ms['hybrid']:.3f} ms, "
         f"plain path {step_ms['plain']:.3f} ms (host clock, 20 steps)")
+
+    # ------------------------------------------------------------ 10. models, hierarchies
+    paths, widths_run, width_errs, width_times = models_and_hierarchies(
+        args, card, cfg, g, n_classes, hidden, plan, counters, gen, dev)
+    f32_errs += width_errs
 
     def dual_entry(key, replaces, path):
         rows = dual_rows[key]
@@ -867,6 +1076,9 @@ def main(argv=None) -> int:
         "timing_builds": csr_limits,
         "step_ms": step_ms,
         "peak_memory_gb": peak_gb,
+        "models_hierarchies": paths,
+        "widths_run_models_hierarchies": widths_run,
+        "by_width_models_hierarchies": width_times,
     },
         {**dual_entry("split", "pytextgcn_tpu/ops/fused_dual.py:185",
                       f"flat.run --train-hybrid-k {HOT_K} (f32 split2, the default), "

@@ -40,7 +40,7 @@ class GraphConfig:
 
 @dataclasses.dataclass
 class ModelConfig:
-    model: str = "gcn"  # gcn (egcn | jk | mlp not ported yet)
+    model: str = "gcn"  # gcn | egcn | jk (mlp is not ported yet)
     n_hidden: int = 100
     n_gcn: int = 2
     dropout: float = 0.7
@@ -97,7 +97,9 @@ class ExperimentConfig:
     # 50k/60k docs, the reference datasets' scales)
     n_docs: int = 0
     result_file: Optional[str] = None
-    save_model: Optional[str] = None  # not ported yet
+    # flat: checkpoint path of the trained model; perlabel: directory of the
+    # members' checkpoints and class_mapping.json
+    save_model: Optional[str] = None
     load_graph: Optional[str] = None  # path to a saved TGData_*.npz artifact
     device: Optional[str] = None  # None = the GPU (raises without one)
     graph: GraphConfig = dataclasses.field(default_factory=GraphConfig)
@@ -227,9 +229,7 @@ def check_ported(cfg: ExperimentConfig) -> None:
     missing = []
     if cfg.dataset not in ("synthetic", "synthetic-amazon", "synthetic-dbpedia"):
         missing.append(f"--dataset {cfg.dataset}")
-    if cfg.save_model:
-        missing.append("--save-model")
-    if cfg.model.model != "gcn":
+    if cfg.model.model not in ("gcn", "egcn", "jk"):
         missing.append(f"--model-model {cfg.model.model}")
     if hybrid_k_arg(t) == "auto":  # the cost model has no H100 constants yet
         missing.append("--train-hybrid-k auto")
@@ -254,9 +254,14 @@ def check_ported(cfg: ExperimentConfig) -> None:
 
 def make_model(cfg: ModelConfig, in_dim: int, out_dim: int,
                generator: Optional[torch.Generator] = None):
-    from .models import GCN
+    from .models import EGCN, GCN, JumpingKnowledgeNetwork
 
+    kw = dict(n_gcn=cfg.n_gcn, n_hidden_gcn=cfg.n_hidden, dropout=cfg.dropout,
+              generator=generator)
     if cfg.model == "gcn":
-        return GCN(in_dim, out_dim, n_gcn=cfg.n_gcn, n_hidden_gcn=cfg.n_hidden,
-                   dropout=cfg.dropout, generator=generator)
+        return GCN(in_dim, out_dim, **kw)
+    if cfg.model == "egcn":
+        return EGCN(in_dim, out_dim, embedding_dim=cfg.embedding_dim, **kw)
+    if cfg.model == "jk":
+        return JumpingKnowledgeNetwork(in_dim, out_dim, **kw)
     raise SystemExit(f"model {cfg.model!r} is not ported yet (see ROADMAP.md)")

@@ -1,21 +1,31 @@
-"""Corpus loading for the port's experiment scripts.
+"""Corpus loading and shared pieces of the port's experiment scripts.
 
 Port of the synthetic branches of ``experiments/common.py``: the
 protocol-scale stand-ins (synthetic-amazon / synthetic-dbpedia) and the
-small synthetic fallback corpus, with the reference's split semantics. The
-CSV datasets are not ported yet.
+small synthetic fallback corpus, with the reference's split semantics and
+its label levels for the hierarchy drivers. The CSV datasets are not
+ported yet.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from typing import List, Optional, Sequence, Tuple
 
-from ..config import ExperimentConfig
+import numpy as np
+import torch
+
+from ..build.text2graph import Text2Graph
+from ..config import ExperimentConfig, GraphConfig
 from ..data.synthetic import protocol_corpus, synthetic_corpus
 
 
-def load_corpus(cfg: ExperimentConfig):
-    """Returns (docs, [labels], test_idx, val_idx) for a flat run."""
+def load_corpus(cfg: ExperimentConfig, levels: Optional[Sequence[str]] = None):
+    """Returns (docs, level_labels [coarse..fine], test_idx, val_idx).
+
+    ``levels``: label level names, coarse to fine (synthetic: lvl1 lvl2;
+    synthetic-amazon: Cat1 Cat2; synthetic-dbpedia: l1 l2 l3). One level or
+    none gives the finest level alone; more give that many levels, top-down
+    like the reference cascades (2 levels of dbpedia are l1, l2)."""
     rng = np.random.default_rng(cfg.train.seed)
     if cfg.dataset in ("synthetic-amazon", "synthetic-dbpedia"):
         protocol = cfg.dataset.split("-")[1]
@@ -31,14 +41,83 @@ def load_corpus(cfg: ExperimentConfig):
             # flat_dbpedia.py:41-60 — explicit val block between train/test
             val_idx = np.arange(n_train, n_train + n_val)
             test_idx = np.arange(n_train + n_val, n)
+        if levels and len(levels) > 1:
+            if len(levels) > len(level_labels):
+                raise SystemExit(f"{cfg.dataset} has {len(level_labels)} label levels, "
+                                 f"{len(levels)} requested")
+            return docs, [np.asarray(l) for l in level_labels[: len(levels)]], test_idx, val_idx
         return docs, [np.asarray(level_labels[-1])], test_idx, val_idx
     if cfg.dataset == "synthetic":
-        docs, child, _parent = synthetic_corpus(
+        docs, child, parent = synthetic_corpus(
             n_docs=400, n_classes=6, n_parents=3, seed=cfg.train.seed
         )
         n = len(docs)
         test_idx = rng.choice(n, n // 5, replace=False)
         remaining = np.setdiff1d(np.arange(n), test_idx)
         val_idx = rng.choice(remaining, n // 10, replace=False)
+        if levels and len(levels) > 1:
+            return docs, [np.asarray(parent), np.asarray(child)], test_idx, val_idx
         return docs, [np.asarray(child)], test_idx, val_idx
     raise SystemExit(f"dataset {cfg.dataset!r} is not ported yet (see ROADMAP.md)")
+
+
+def default_levels(cfg: ExperimentConfig) -> List[str]:
+    """The hierarchy drivers' two levels when ``--levels`` is not given."""
+    return ["lvl1", "lvl2"] if cfg.dataset == "synthetic" else ["Cat1", "Cat2"]
+
+
+def pop_list_flag(argv: List[str], flag: str) -> Tuple[List[str], Optional[List[str]]]:
+    """Removes ``flag`` and the values after it (up to the next ``--``
+    option) from ``argv``; returns (argv, values or None)."""
+    argv = list(argv)
+    if flag not in argv:
+        return argv, None
+    i = argv.index(flag)
+    j = i + 1
+    while j < len(argv) and not argv[j].startswith("--"):
+        j += 1
+    values = argv[i + 1:j]
+    del argv[i:j]
+    return argv, values
+
+
+def build_graph(gcfg: GraphConfig, docs, y, test_idx, val_idx, verbose: int = 1):
+    """``Text2Graph`` with the graph knobs ``gcfg`` over the whole corpus."""
+    t2g = Text2Graph(
+        min_df=gcfg.min_df,
+        max_df=gcfg.max_df,
+        window_size=gcfg.window_size,
+        max_length=gcfg.max_length,
+        rm_stopwords=gcfg.rm_stopwords,
+        backend=gcfg.backend,
+        save_path=gcfg.save_path,
+        verbose=verbose,
+        n_jobs=8,
+    )
+    return t2g.fit_transform(docs, y, test_idx=test_idx, val_idx=val_idx)
+
+
+def trainer_kwargs(cfg: ExperimentConfig, default_optimizer: Optional[str] = None) -> dict:
+    """The Trainer's aggregation and optimizer settings from the config.
+    ``cfg.train.optimizer == 'default'`` leaves the optimizer to the caller
+    (``default_optimizer``): amsgrad for flat runs, plain Adam for the
+    hierarchy drivers, as in the reference."""
+    from ..config import hybrid_f32_mode_arg, hybrid_fused_arg, hybrid_k_arg
+
+    opt = cfg.train.optimizer
+    return {
+        "optimizer": default_optimizer if opt == "default" else opt,
+        "use_pallas": cfg.train.use_pallas,
+        "pallas_dtype": cfg.train.pallas_dtype,
+        "device": cfg.device,
+        "hybrid_k": hybrid_k_arg(cfg.train),
+        "hybrid_fused": hybrid_fused_arg(cfg.train),
+        "hybrid_f32_mode": hybrid_f32_mode_arg(cfg.train),
+    }
+
+
+def exact_f32() -> None:
+    """Dense products and cuDNN (the JK network's LSTM) in full f32, as the
+    JAX package runs them: cuDNN would use TF32 by default."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,8 +1,10 @@
 """Flat TextGCN experiment (PyTorch port).
 
 Port of ``experiments/flat.py``: one transductive graph over
-train+val+test, a 2-layer GCN, masked CE, Adam(amsgrad), per-epoch val
-metrics, final test accuracy / macro-F1 appended to the results CSV.
+train+val+test, a 2-layer GCN (or ``--model-model egcn|jk``), masked CE,
+Adam(amsgrad), per-epoch val metrics, final test accuracy / macro-F1
+appended to the results CSV; ``--save-model PATH`` checkpoints the trained
+model (``Trainer.save``: ``PATH.npz`` / ``PATH.json``).
 
 Examples:
     python -m pytextgcn_tpu_torch.experiments.flat                 # synthetic
@@ -11,6 +13,7 @@ Examples:
     python -m pytextgcn_tpu_torch.experiments.flat --device cpu --train-epochs 40
     python -m pytextgcn_tpu_torch.experiments.flat --dataset synthetic-amazon \\
         --train-hybrid-k 4096                     # the hybrid SpMM
+    python -m pytextgcn_tpu_torch.experiments.flat --device cpu --model-model jk
 """
 
 from __future__ import annotations
@@ -19,12 +22,11 @@ import numpy as np
 import torch
 
 from ..build.text2graph import Text2Graph
-from ..config import (check_ported, hybrid_f32_mode_arg, hybrid_fused_arg, hybrid_k_arg,
-                      make_model, parse_config)
+from ..config import check_ported, make_model, parse_config
 from ..train.metrics import confusion_matrix
 from ..train.results import append_result
 from ..train.trainer import Trainer
-from .common import load_corpus
+from . import common
 
 
 def build_graph(cfg):
@@ -35,22 +37,11 @@ def build_graph(cfg):
         n_classes = int(np.max(np.asarray(g.y))) + 1
         print(f"Graph loaded from {cfg.load_graph}! n_classes={n_classes}")
         return g, n_classes
-    docs, labels, test_idx, val_idx = load_corpus(cfg)
+    docs, labels, test_idx, val_idx = common.load_corpus(cfg)
     y = labels[0]
     n_classes = int(np.max(y)) + 1
     print(f"Data loaded! {len(docs)} docs, {n_classes} classes")
-    t2g = Text2Graph(
-        min_df=cfg.graph.min_df,
-        max_df=cfg.graph.max_df,
-        window_size=cfg.graph.window_size,
-        max_length=cfg.graph.max_length,
-        rm_stopwords=cfg.graph.rm_stopwords,
-        backend=cfg.graph.backend,
-        save_path=cfg.graph.save_path,
-        verbose=cfg.train.verbose,
-        n_jobs=8,
-    )
-    g = t2g.fit_transform(docs, y, test_idx=test_idx, val_idx=val_idx)
+    g = common.build_graph(cfg.graph, docs, y, test_idx, val_idx, cfg.train.verbose)
     print("Graph built!")
     return g, n_classes
 
@@ -58,19 +49,11 @@ def build_graph(cfg):
 def run(cfg, g, n_classes):
     """Train and evaluate on a built graph and append the results row.
     Returns the test metrics plus the per-epoch history under
-    ``"history"``."""
+    ``"history"`` and the trainer under ``"trainer"``."""
     model = make_model(cfg.model, g.in_dim, n_classes,
                        generator=torch.Generator().manual_seed(cfg.train.seed))
-    trainer = Trainer(
-        model, lr=cfg.train.lr, seed=cfg.train.seed,
-        optimizer=None if cfg.train.optimizer == "default" else cfg.train.optimizer,
-        use_pallas=cfg.train.use_pallas,
-        pallas_dtype=cfg.train.pallas_dtype,
-        device=cfg.device,
-        hybrid_k=hybrid_k_arg(cfg.train),
-        hybrid_fused=hybrid_fused_arg(cfg.train),
-        hybrid_f32_mode=hybrid_f32_mode_arg(cfg.train),
-    )
+    trainer = Trainer(model, lr=cfg.train.lr, seed=cfg.train.seed,
+                      **common.trainer_kwargs(cfg))
     history = trainer.fit(
         g,
         epochs=cfg.train.epochs,
@@ -89,6 +72,8 @@ def run(cfg, g, n_classes):
                               torch.as_tensor(g.test_mask, device=dev), n_classes)
         print("Confusion matrix:")
         print(cm.cpu().numpy())
+    if cfg.save_model:
+        trainer.save(cfg.save_model, epoch=len(history))
     if cfg.result_file:
         append_result(
             cfg.result_file,
@@ -98,7 +83,7 @@ def run(cfg, g, n_classes):
             f1_macro=metrics["f1_macro"],
             accuracy=metrics["accuracy"],
         )
-    return {**metrics, "history": history}
+    return {**metrics, "history": history, "trainer": trainer}
 
 
 def main(argv=None):
@@ -106,6 +91,7 @@ def main(argv=None):
     history under ``"history"``."""
     cfg = parse_config(argv)
     check_ported(cfg)
+    common.exact_f32()
     g, n_classes = build_graph(cfg)
     return run(cfg, g, n_classes)
 

@@ -1,3 +1,4 @@
-from .gcn import GCN, export_params, load_jax_params
+from .gcn import EGCN, GCN, export_params, load_jax_params
+from .jk import JumpingKnowledgeNetwork
 
-__all__ = ["GCN", "export_params", "load_jax_params"]
+__all__ = ["EGCN", "GCN", "JumpingKnowledgeNetwork", "export_params", "load_jax_params"]

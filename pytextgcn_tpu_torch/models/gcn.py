@@ -1,7 +1,7 @@
-"""GCN model.
+"""GCN and EGCN models.
 
-Port of ``pytextgcn_tpu/models/gcn.py::GCN`` (the reference's
-textgcn/lib/models.py:6-25): an N-layer GCNConv stack with dropout between
+Port of ``pytextgcn_tpu/models/gcn.py`` (the reference's
+textgcn/lib/models.py:6-52): an N-layer GCNConv stack with dropout between
 layers and — parity-critically — **no inter-layer activation** (the
 reference comments the ReLU out; switchable via ``activation``).
 
@@ -14,7 +14,7 @@ they are (:func:`load_jax_params`, :func:`export_params`).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +23,7 @@ from torch import nn
 from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
 from ..ops.spmm import spmm
-from .layers import dropout, glorot
+from .layers import Dense, dropout, glorot
 
 
 class GraphConv(nn.Module):
@@ -70,6 +70,12 @@ class GCN(nn.Module):
             GraphConv(d_in, d_out, generator) for d_in, d_out in zip(dims[:-1], dims[1:])
         )
 
+    def jax_tree(self) -> Dict[str, Any]:
+        """The JAX package's parameter tree of this model, with each leaf a
+        ``(parameter, stored_transposed)`` pair."""
+        return {"layers": [{"w": (layer.w, False), "b": (layer.b, False)}
+                           for layer in self.layers]}
+
     def forward(
         self,
         adj: NormAdj,
@@ -82,9 +88,7 @@ class GCN(nn.Module):
         """Logits [N, out_dim]. ``generator`` draws the dropout masks when
         ``train``. ``adj_out`` (the JAX package's output-row-restricted
         head operator, ops/restricted.py) is not ported yet."""
-        if adj_out is not None:
-            raise NotImplementedError(
-                "the masked-head operator (adj_out) is not ported yet (ROADMAP.md)")
+        _refuse_adj_out(adj_out)
         first, *rest = self.layers
         h = spmm(adj, feats.matmul(first.w)) + first.b
         for layer in rest:
@@ -95,26 +99,108 @@ class GCN(nn.Module):
         return h
 
 
-def load_jax_params(model: GCN, params: Dict[str, List[Dict[str, np.ndarray]]]) -> GCN:
-    """Copy a JAX ``GCN`` parameter tree, given as numpy arrays
-    (``{"layers": [{"w": [in, out], "b": [out]}, ...]}``), into ``model``."""
-    layers = params["layers"]
-    if len(layers) != len(model.layers):
-        raise ValueError(f"{len(layers)} layers given, model has {len(model.layers)}")
+def _refuse_adj_out(adj_out) -> None:
+    if adj_out is not None:
+        raise NotImplementedError(
+            "the masked-head operator (adj_out) is not ported yet (ROADMAP.md)")
+
+
+class EGCN(GCN):
+    """Embedding-GCN: a dense embedding layer (Linear + SELU + dropout) in
+    front of the GCN stack (reference models.py:28-52). With identity
+    features the embedding ``X @ W_emb + b`` collapses to ``W_emb + b``: no
+    N x N product.
+
+    Reference quirk kept: its loop condition over ``layers[1:]`` is always
+    true (models.py:46-50), so dropout follows every GCN layer, the logits
+    included."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        out_dim: int,
+        embedding_dim: int = 2000,
+        n_gcn: int = 2,
+        n_hidden_gcn: int = 64,
+        dropout: float = 0.5,
+        activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        # the GCN stack starts at the embedding width
+        super().__init__(embedding_dim, out_dim, n_gcn, n_hidden_gcn, dropout, activation,
+                         generator)
+        self.in_dim = in_dim
+        self.embedding_dim = embedding_dim
+        self.embed = Dense(in_dim, embedding_dim, generator)
+
+    def jax_tree(self) -> Dict[str, Any]:
+        return {"embed": {"w": (self.embed.w, False), "b": (self.embed.b, False)},
+                **super().jax_tree()}
+
+    def forward(self, adj: NormAdj, feats: NodeFeatures, *, train: bool = False,
+                generator: Optional[torch.Generator] = None, adj_out=None) -> torch.Tensor:
+        _refuse_adj_out(adj_out)
+        h = torch.selu(feats.matmul(self.embed.w) + self.embed.b)
+        h = dropout(h, self.dropout, train, generator)
+        for layer in self.layers:
+            h = spmm(adj, h @ layer.w) + layer.b
+            if self.activation is not None:
+                h = self.activation(h)
+            h = dropout(h, self.dropout, train, generator)
+        return h
+
+
+def _pairs(tree, given, path: str = "params") -> Iterator[Tuple[str, Any, Any]]:
+    """(path, model leaf, given leaf) for every leaf, checking that
+    ``given`` has the model tree's keys and list lengths."""
+    if isinstance(tree, dict):
+        if not isinstance(given, dict) or set(given) != set(tree):
+            keys = sorted(given) if isinstance(given, dict) else type(given).__name__
+            raise ValueError(f"{path}: keys {keys} given, model has {sorted(tree)}")
+        for k in sorted(tree):
+            yield from _pairs(tree[k], given[k], f"{path}/{k}")
+    elif isinstance(tree, list):
+        if not isinstance(given, (list, tuple)) or len(given) != len(tree):
+            n = len(given) if isinstance(given, (list, tuple)) else type(given).__name__
+            raise ValueError(f"{path}: {n} entries given, model has {len(tree)}")
+        for i, (t, g) in enumerate(zip(tree, given)):
+            yield from _pairs(t, g, f"{path}/{i}")
+    else:
+        yield path, tree, given
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def load_jax_params(model: nn.Module, params: Dict[str, Any]) -> nn.Module:
+    """Copy a JAX parameter tree, given as numpy arrays, into ``model`` (a
+    GCN ``{"layers": [{"w": [in, out], "b": [out]}, ...]}``, an EGCN with
+    ``"embed"`` besides, or a JumpingKnowledgeNetwork). Keys, list lengths
+    and shapes must match the model's."""
     with torch.no_grad():
-        for layer, p in zip(model.layers, layers):
-            for name in ("w", "b"):
-                dst = getattr(layer, name)
-                src = torch.as_tensor(np.asarray(p[name], np.float32))
-                if src.shape != dst.shape:
-                    raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(dst.shape)}")
-                dst.copy_(src)
+        for path, (dst, transposed), src in _pairs(model.jax_tree(), params):
+            src = torch.tensor(np.asarray(src, np.float32))
+            if transposed:
+                src = src.t()
+            if src.shape != dst.shape:
+                shape = tuple(src.t().shape if transposed else src.shape)
+                want = tuple(dst.t().shape if transposed else dst.shape)
+                raise ValueError(f"{path}: shape {shape} != {want}")
+            dst.copy_(src)
     return model
 
 
-def export_params(model: GCN) -> Dict[str, List[Dict[str, np.ndarray]]]:
+def export_params(model: nn.Module) -> Dict[str, Any]:
     """The model's parameters as the JAX package's numpy parameter tree
     (copies: later training does not change them)."""
-    return {"layers": [{"w": layer.w.detach().cpu().numpy().copy(),
-                        "b": layer.b.detach().cpu().numpy().copy()}
-                       for layer in model.layers]}
+    def leaf(pair):
+        p, transposed = pair
+        a = p.detach().cpu()
+        return (a.t() if transposed else a).numpy().copy()
+
+    return _map_tree(leaf, model.jax_tree())

@@ -1,9 +1,16 @@
-"""Parameter initializers and dropout.
+"""Parameter initializers, dropout, the dense layer and the BiLSTM.
 
 Port of ``pytextgcn_tpu/models/layers.py``. Random numbers come from an
 explicit ``torch.Generator``; they cannot match JAX's threefry stream, so
 parity tests share parameters (``models/gcn.py::load_jax_params``) and run
 with dropout 0.
+
+The JAX package runs its LSTM as a ``lax.scan``; here it is
+``torch.nn.LSTM`` (dense work, no Pallas kernel behind it), with the same
+gate order i, f, g, o: JAX's ``wi`` ``[in, 4H]`` is ``weight_ih_l0``
+transposed, ``wh`` is ``weight_hh_l0`` transposed, ``bi`` / ``bh`` are
+``bias_ih_l0`` / ``bias_hh_l0``; the backward direction is the ``_reverse``
+set.
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
+from torch import nn
 
 
 def _uniform(shape: Sequence[int], limit: float,
@@ -51,3 +59,37 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, 0.0)
+
+
+class Dense(nn.Module):
+    """``x @ w + b`` with ``w`` ``[in, out]`` (the JAX layout) and the
+    torch.nn.Linear-style init of :func:`linear_init`."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        p = linear_init(in_dim, out_dim, generator)
+        self.w = nn.Parameter(p["w"])
+        self.b = nn.Parameter(p["b"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w + self.b
+
+
+def bilstm(in_dim: int, hidden: int,
+           generator: Optional[torch.Generator] = None) -> nn.LSTM:
+    """One bidirectional LSTM layer over axis 1 of ``[B, T, in_dim]``,
+    giving ``[B, T, 2 * hidden]`` (forward, then backward). Every weight and
+    bias is drawn from U(-1/sqrt(hidden), 1/sqrt(hidden)), torch's and the
+    JAX package's ``lstm_init`` distribution, from ``generator``."""
+    lstm = nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=True)
+    limit = 1.0 / math.sqrt(hidden)
+    with torch.no_grad():
+        for p in lstm.parameters():
+            p.copy_(_uniform(p.shape, limit, generator))
+    return lstm
+
+
+# JAX lstm_init leaf -> (nn.LSTM attribute stem, stored transposed)
+LSTM_LEAVES = {"wi": ("weight_ih_l0", True), "wh": ("weight_hh_l0", True),
+               "bi": ("bias_ih_l0", False), "bh": ("bias_hh_l0", False)}

@@ -1,8 +1,9 @@
 """Full-batch training engine.
 
-Port of ``pytextgcn_tpu/train/trainer.py`` (the flat path: ``fit`` with
-``eval_every`` and the 'reference' / 'val_f1' early-stopping rules,
-``evaluate``, ``predict_logits``). A train step is forward, masked
+Port of ``pytextgcn_tpu/train/trainer.py``: ``fit`` with ``eval_every``,
+the 'reference' / 'val_f1' early-stopping rules and ``start_epoch``,
+``evaluate``, ``predict_logits``, ``save`` / ``restore`` and
+``share_adjacency``. A train step is forward, masked
 cross-entropy, backward and an optimizer step; the default optimizer is
 ``torch.optim.Adam(amsgrad=True)``, the reference's update rule
 (flat_amazon.py:89).
@@ -23,9 +24,11 @@ import numpy as np
 import torch
 
 from ..core.graph import TextGraph
+from ..models import export_params, load_jax_params
 from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
 from ..utils import resolve_device
+from .checkpoint import load_checkpoint, load_meta, save_checkpoint
 from .metrics import accuracy, macro_f1, masked_cross_entropy
 from .optim import resolve_optimizer
 
@@ -67,6 +70,7 @@ class Trainer:
         self._adj: Optional[NormAdj] = None
         self._adj_key: Optional[tuple] = None
         self._feats: Optional[NodeFeatures] = None
+        self._restored = False
 
     # ------------------------------------------------------------ internals
 
@@ -86,6 +90,19 @@ class Trainer:
             self._adj_key = key
         self._feats = NodeFeatures.from_graph(g, device=self.device)
         return self._adj, self._feats
+
+    def share_adjacency(self, other: "Trainer") -> None:
+        """Adopt another trainer's prepared operator (normalization and
+        kernel plan). Hierarchy cascades and ensembles swap labels, masks
+        and features with ``dataclasses.replace`` while the edge arrays stay
+        the same objects, so their members can share one build. Nothing is
+        adopted unless the aggregation settings are equal; :meth:`prepare`'s
+        edge-identity check still guards against a different graph."""
+        settings = lambda t: (t.device, t.use_pallas, t.pallas_dtype, t.hybrid_k,
+                              t.hybrid_fused, t.hybrid_f32_mode)
+        if other._adj is None or settings(self) != settings(other):
+            return
+        self._adj, self._adj_key = other._adj, other._adj_key
 
     def _train_step(self, adj, feats, y, mask) -> torch.Tensor:
         self.optimizer.zero_grad(set_to_none=True)
@@ -121,15 +138,24 @@ class Trainer:
         patience: int = 10,
         min_epochs: int = 30,
         log_fn: Callable[[str], None] = print,
+        start_epoch: int = 0,
     ) -> List[Dict[str, float]]:
         """Train on the full graph; returns per-epoch history.
 
         ``early_stopping='reference'`` replicates flat_amazon.py:121-123
         (stop when the train loss 5 epochs ago beat the current one);
         ``'val_f1'`` is the patience scheme of MLP_flat.py:54,100-110.
+
+        ``start_epoch``: the resume point returned by :meth:`restore`. The
+        restored optimizer and dropout-generator state continue exactly
+        where the saved run stopped, so the resumed run gives bit for bit
+        the parameters of an uninterrupted one. As in the JAX trainer, the
+        early-stopping windows restart at the resume point.
         """
         if early_stopping not in (None, "reference", "val_f1"):
             raise ValueError(f"unknown early_stopping {early_stopping!r}")
+        if start_epoch and not self._restored:
+            raise ValueError("start_epoch > 0 resumes a run: call Trainer.restore(path) first")
         if n_classes is None:
             n_classes = int(np.max(np.asarray(g.y))) + 1
         adj, feats = self.prepare(g)
@@ -141,7 +167,7 @@ class Trainer:
         f1_hist: List[float] = []  # val F1 at eval points (for 'val_f1' ES)
         width = len(str(epochs))
         t0 = time.time()
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             loss = self._train_step(adj, feats, y, train_mask)
             # reading the loss synchronizes with the device: only where the
             # reference rule needs every epoch's loss, or at eval points
@@ -186,6 +212,31 @@ class Trainer:
         if verbose > 0:
             log_fn(f"training took {time.time() - t0:.2f}s for {len(history)} epochs")
         return [{k: float(v) for k, v in rec.items()} for rec in history]
+
+    def save(self, path: str, epoch: int) -> None:
+        """Checkpoint the parameters (in the JAX package's layout), the
+        optimizer and dropout-generator state and the epoch counter:
+        everything :meth:`fit` needs to resume bit for bit."""
+        save_checkpoint(
+            path, export_params(self.model),
+            torch_state={"optimizer": self.optimizer.state_dict(),
+                         "generator": self.generator.get_state()},
+            meta={"epoch": int(epoch), "seed": self.seed,
+                  "model": type(self.model).__name__},
+        )
+
+    def restore(self, path: str) -> int:
+        """Load a checkpoint written by :meth:`save`, or the parameters of
+        one written by the JAX package's ``save_checkpoint`` (which carries
+        no torch state: the optimizer and generator then stay as they are).
+        Returns the epoch to pass to ``fit(..., start_epoch=...)``."""
+        params, state = load_checkpoint(path, export_params(self.model))
+        load_jax_params(self.model, params)
+        if state is not None:
+            self.optimizer.load_state_dict(state["optimizer"])
+            self.generator.set_state(state["generator"])
+        self._restored = True
+        return int(load_meta(path).get("epoch", 0))
 
     @torch.no_grad()
     def predict_logits(self, g: Optional[TextGraph] = None) -> torch.Tensor:

@@ -33,5 +33,13 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
         assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
 
 
+# the EGCN/JK, checkpoint and hierarchy modules
+MODELS_AND_HIERARCHIES = ["models/jk.py", "train/checkpoint.py", "hierarchy/__init__.py",
+           "hierarchy/perlevel.py", "hierarchy/perlabel.py", "experiments/perlevel.py",
+           "experiments/perlabel.py", "experiments/protocol.py"]
+
+
 def test_every_port_module_is_checked():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py") in FILES
+    for name in MODELS_AND_HIERARCHIES:
+        assert ROOT / "pytextgcn_tpu_torch" / name in FILES, name

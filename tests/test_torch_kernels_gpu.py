@@ -69,6 +69,29 @@ def test_kernel_matches_plain_f32(cuda, h, hubs):
                        spmm_cuda.spmm_csr_kernel(plan.fwd, x))
 
 
+# the hierarchy and model paths' widths: per-label members' child counts
+# (2, 7, 9), the amazon Cat1 level (6), the dbpedia hidden width and levels
+# (32, 9, 219: a row of 55 vectors, one group a warp, two 128-column blocks)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [2, 6, 7, 9, 32, 219])
+@pytest.mark.parametrize("hubs", [False, True], ids=["uniform", "hubs"])
+def test_kernel_matches_plain_at_hierarchy_widths(cuda, h, hubs, dtype):
+    rng = np.random.default_rng(1000 + h)
+    plan = _plan(rng, 3000, 40_000, cuda, hubs=hubs)
+    x32 = torch.randn(3000, h, device=cuda)
+    x = x32.to(dtype)
+    for csr in (plan.fwd, plan.bwd):
+        before = spmm_cuda.spmm_csr_kernel.launches
+        got = spmm_cuda.spmm_csr_kernel(csr, x)
+        assert spmm_cuda.spmm_csr_kernel.launches == before + 1
+        assert got.shape == (3000, h) and got.dtype == torch.float32
+        _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x), spmm_cuda.spmm_csr_abs(csr, x))
+        if dtype == torch.bfloat16:  # bf16 rounds each x by at most 2^-9 of it
+            _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x32),
+                          spmm_cuda.spmm_csr_abs(csr, x32), rtol=2.0**-8)
+        assert torch.equal(got, spmm_cuda.spmm_csr_kernel(csr, x))  # no atomics
+
+
 @pytest.mark.parametrize("h", [100, 43])
 def test_kernel_matches_plain_bf16(cuda, h):
     rng = np.random.default_rng(7)
@@ -140,6 +163,47 @@ def test_gcn_on_card_matches_cpu(cuda):
     gpu = model(NormAdj.from_graph(g, use_pallas=True, device=cuda),
                 NodeFeatures.from_graph(g, device=cuda))
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["egcn", "jk"])
+def test_models_on_card_match_cpu(cuda, name):
+    """EGCN (its embedding read through the hierarchy columns of a level-2
+    graph) and the JK network (cuDNN's LSTM, TF32 off) on the card against
+    the CPU, logits and gradients, at dropout 0."""
+    from pytextgcn_tpu_torch.models import EGCN, JumpingKnowledgeNetwork
+    from pytextgcn_tpu_torch.train.metrics import masked_cross_entropy
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(6)
+    n_vocab, n_docs, e = 300, 400, 8000
+    n = n_vocab + n_docs
+    g = TextGraph(
+        edge_src=rng.integers(0, n, e).astype(np.int32),
+        edge_dst=rng.integers(0, n, e).astype(np.int32),
+        edge_w=rng.random(e).astype(np.float32), y=rng.integers(0, 6, n).astype(np.int32),
+        train_mask=np.r_[np.zeros(n_vocab, bool), np.ones(n_docs, bool)],
+        val_mask=np.zeros(n, bool), test_mask=np.zeros(n, bool),
+        n_vocab=n_vocab, n_docs=n_docs,
+        hierarchy_feats=np.eye(3, dtype=np.float32)[rng.integers(0, 3, n_docs)])
+    gen = torch.Generator().manual_seed(0)
+    model = (EGCN(g.in_dim, 6, embedding_dim=256, n_hidden_gcn=100, dropout=0.0, generator=gen)
+             if name == "egcn" else
+             JumpingKnowledgeNetwork(g.in_dim, 6, n_hidden_gcn=100, dropout=0.0, generator=gen))
+    out = {}
+    for dev in ("cpu", cuda):
+        model.to(dev).zero_grad()
+        logits = model(NormAdj.from_graph(g, use_pallas=True, device=dev),
+                       NodeFeatures.from_graph(g, device=dev))
+        masked_cross_entropy(logits, torch.as_tensor(g.y, device=dev).long(),
+                             torch.as_tensor(g.train_mask, device=dev)).backward()
+        # copies: moving the model moves its gradients in place
+        out[str(dev)] = (logits.detach().cpu().clone(),
+                         [p.grad.cpu().clone() for p in model.parameters()])
+    (cpu, cpu_grads), (gpu, gpu_grads) = out["cpu"], out[str(cuda)]
+    scale = float(cpu.abs().max())
+    torch.testing.assert_close(gpu, cpu, rtol=0, atol=1e-5 * scale)
+    for a, b in zip(gpu_grads, cpu_grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()) + 1e-9)
 
 
 def _long_row_plan(rng, n_rows, n_cols, device):

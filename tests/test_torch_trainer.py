@@ -76,7 +76,7 @@ def test_flat_experiment_writes_results_row(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--train-hybrid-k", "auto"], ["--train-masked-head", "true"],
-    ["--train-sharding", "halo"], ["--model-model", "egcn"], ["--dataset", "amazon"],
+    ["--train-sharding", "halo"], ["--model-model", "mlp"], ["--dataset", "amazon"],
     ["--train-batch-size", "64"],
 ])
 def test_flat_experiment_refuses_unported_settings(flag):
