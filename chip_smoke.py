@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py                      # the full check, ~2 min
+    python3 chip_smoke.py                      # the full check, ~3 min
     python3 chip_smoke.py --profile OUT_DIR    # also torch.profiler tables of the
                                                # CSR and hybrid train steps
 
@@ -72,7 +72,28 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    forward-only pass of every level or member, each loss must be finite
    and fall (a member with one class has a loss of exactly 0), and the
    kernel must match its plain version at every width the path ran; each
-   path's train step time and peak memory are printed.
+   path's train step time and peak memory are printed. Composed per-label
+   inference runs the members as one batched pass (2 launches).
+11. the trainer's operator options, each through its entry point at full
+   width: the flat experiment with ``--train-masked-head`` (launches by
+   plan shape exact: 2 full and 2 restricted a train step, 2 full a
+   forward-only pass; the first step's loss and gradients against the
+   full-output step from the same parameters at dropout 0; the restricted
+   forward [M, N] and transpose [N, M] plans against the plain version,
+   empty rows exact zeros; its step beside the full-output step);
+   the cost model's constants fitted from this run (the CSR kernel by
+   width up to 600, the segment path, the dual kernels' K sweep, the
+   restricted head's slab product) beside the ones in use; ``'auto'`` at
+   H = 100 (every candidate modeled, K = 0, 1024, 2048, 4096 and the chosen
+   one measured: the chosen K must time within 10% of the fastest) and the
+   flat experiment with ``--train-hybrid-k auto``; the restricted chooser
+   the same way at H = 43; the per-label experiment with ``--train-ep``
+   (one launch of width 6 x 100 per application, counts exact), its
+   members against six sequential ones from the same initialization at
+   dropout 0 (rtol 2e-4, atol 2e-5), its step against the six sequential
+   steps; the CSR kernel at H = 600 against its plain version; and the
+   plan cache (cold build, warm load, the loaded plan equal bit for bit,
+   the flat experiment's losses on a cold and on a warm cache equal).
 
 It prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -289,6 +310,25 @@ def dual_work(variant: int, n: int, k: int, h: int):
     return n_bytes, flops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def sparse_csr(csr):
+    """The plan as a torch sparse CSR tensor, for the library yardstick
+    (``torch.sparse.mm``), used nowhere in the port."""
+    import torch
+
+    return torch.sparse_csr_tensor(csr.row_ptr, csr.col.contiguous(), csr.val.contiguous(),
+                                   size=(csr.n_rows, csr.n_cols), check_invariants=False)
+
+
+def chunked(fn, csr, x, width: int = 128):
+    """``fn(csr, x)`` (the plain version, or its magnitudes) over column
+    blocks of x: the plain version's gather holds an ``[E, H]`` copy, 32 GB
+    at H = 600 on the 50k-doc graph."""
+    import torch
+
+    return torch.cat([fn(csr, x[:, i:i + width].contiguous())
+                      for i in range(0, x.shape[1], width)], dim=1)
+
+
 def run_path(flat, cfg, g, n_classes, counters):
     """``flat.run`` with every launch count set to 0 just before it; returns
     the result, the seconds, and each counter's launches in the run."""
@@ -324,12 +364,11 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     n, e = g.n_nodes, g.n_edges
-    log(f"[10/10] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
+    log(f"[10/11] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
         "level or member):")
     _, (cat1, cat2), _, _ = common.load_corpus(cfg, levels=["Cat1", "Cat2"])
     if not np.array_equal(cat2, np.asarray(g.y)[g.n_vocab:]):
         fail("the corpus's Cat2 labels differ from phase 2's graph")
-    test_docs = np.asarray(g.test_mask)[g.n_vocab:]
     p10 = ["--dataset", "synthetic-amazon", "--n-docs", str(args.n_docs),
            "--model-n-hidden", str(hidden), "--model-dropout", "0.7", "--train-lr", "0.05",
            "--train-epochs", str(MODEL_EPOCHS), "--train-eval-every", "1",
@@ -439,16 +478,16 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
         sizes = [len(res["mapping"][c]) for c in range(6)]
         losses = [check_losses(f"per-label member {c}", h, size)
                   for c, (h, size) in enumerate(zip(res["histories"], sizes))]
-        routed = sum(bool(((cat1 == c) & test_docs).any()) for c in range(6))
+        # composed inference runs the six members as one batched pass: 2 launches
         record("gcn per-label", res["trainers"], secs, counts,
-               sum(passes(h) for h in res["histories"]) + 2 * routed, peak,
+               sum(passes(h) for h in res["histories"]) + 2, peak,
                f"6 members of {sizes} classes, losses {losses}, test acc "
                f"{res['accuracy']:.4f}, macro-F1 {res['f1_macro']:.4f}",
                res["trainers"][int(np.argmax(sizes))])  # the member with the most classes
         back, secs, counts, peak = drive(perlabel.run, pcfg, g, cat1, cat2, eval_only=True)
         if not np.array_equal(back["predictions"], res["predictions"]):
             fail("per-label --eval-only: predictions differ from the trained ensemble's")
-        record("gcn per-label --eval-only", back["trainers"], secs, counts, 2 * routed, peak,
+        record("gcn per-label --eval-only", back["trainers"], secs, counts, 2, peak,
                f"{len(os.listdir(models_dir))} files read back, the same predictions, test "
                f"acc {back['accuracy']:.4f}", None)
         del res, back
@@ -472,14 +511,451 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
                                 mag(csr, x), F32_RTOL))
         x = torch.randn(n, h, generator=gen, device=dev)
         _, _, bound, bound_by = spmm_work(plan.fwd, h, 4)
+        lib = sparse_csr(plan.fwd)
         row = {"h": h, "ms": time_ms(lambda: kernel(plan.fwd, x), 20),
                "plain_ms": time_ms(lambda: plain(plan.fwd, x), 3, warmup=1),
+               "library_ms": time_ms(lambda: torch.sparse.mm(lib, x), 10),
                "bound_ms": bound, "bound_by": bound_by}
         by_width.append(row)
         log(f"  spmm_csr fwd H={h}: kernel {row['ms']:.4f} ms, bound {bound:.4f} ms by "
-            f"{bound_by}, plain {row['plain_ms']:.4f} ms")
+            f"{bound_by}, plain {row['plain_ms']:.4f} ms, torch.sparse.mm "
+            f"{row['library_ms']:.4f} ms")
     torch.cuda.synchronize()
-    return paths, sorted(widths_run), errs, by_width
+    return paths, sorted(widths_run), errs, by_width, (cat1, cat2)
+
+
+def allclose(name: str, got, want, rtol: float, atol: float) -> float:
+    """Fails unless ``|got - want| <= atol + rtol * |want|`` everywhere (the
+    numpy band the trajectory tests use); returns the largest error."""
+    import torch
+
+    got, want = got.detach().float(), want.detach().float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}, or non-finite")
+    diff = (got - want).abs()
+    err = float(diff.max()) if got.numel() else 0.0
+    ok = bool((diff <= atol + rtol * want.abs()).all())
+    log(f"  check {name}: max_abs_err={err:.3e} (rtol {rtol:g}, atol {atol:g}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name}: outside rtol {rtol:g}, atol {atol:g}")
+    return err
+
+
+def operator_options(args, card, g, n_classes: int, hidden: int, adj, counters, gen, dev,
+                     cat1, cat2, csr_ms_by_width: dict):
+    """Phase 11: the trainer's single-device operator options on ``g``, each
+    driven through its entry point with the launch counts set to 0 just
+    before it: the masked head (its first step against the full-output
+    step, its restricted launches against the plain version), 'auto' K at
+    H = ``hidden`` and the restricted chooser at H = ``n_classes`` (each
+    candidate measured: the chosen K must time within 10% of the fastest),
+    the batched per-label ensemble (one launch of width 6 * hidden per
+    application; its members against six sequential ones), the plan cache
+    (cold build, warm load, the same bits, the same losses), the CSR
+    kernel at H = 600, and the cost model's constants fitted from this
+    run. Returns (summary, kernel errors, kernel rows for the JSON line)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pytextgcn_tpu_torch.config import check_ported, make_model, parse_config
+    from pytextgcn_tpu_torch.core.graph import gcn_normalize_np
+    from pytextgcn_tpu_torch.experiments import flat, perlabel
+    from pytextgcn_tpu_torch.hierarchy import perlabel as hpl
+    from pytextgcn_tpu_torch.hierarchy import train_per_label
+    from pytextgcn_tpu_torch.ops import NormAdj, hybrid
+    from pytextgcn_tpu_torch.ops import fused_dual as fd
+    from pytextgcn_tpu_torch.ops import spmm_cuda
+    from pytextgcn_tpu_torch.ops.restricted import (RESTRICTED_CANDIDATES, _SLAB_BPS,
+                                                    _SLAB_FLOPS, build_restricted_adj,
+                                                    choose_restricted_k, spmm_restricted)
+    from pytextgcn_tpu_torch.train.metrics import masked_cross_entropy
+    from pytextgcn_tpu_torch.train.optim import resolve_optimizer
+
+    kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
+                          spmm_cuda.spmm_csr_abs)
+    plan = adj.plan
+    n, e = g.n_nodes, g.n_edges
+    epochs = MODEL_EPOCHS
+    base = ["--dataset", "synthetic-amazon", "--n-docs", str(args.n_docs),
+            "--model-n-hidden", str(hidden), "--model-dropout", "0.7", "--train-lr", "0.05",
+            "--train-epochs", str(epochs), "--train-eval-every", "1", "--train-verbose", "0"]
+    out, errs, rows_json = {}, [], []
+    y = torch.as_tensor(g.y, dtype=torch.int64, device=dev)
+    train_mask = torch.as_tensor(g.train_mask, device=dev)
+    log(f"[11/11] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
+
+    # ---- the masked head through the flat experiment
+    mcfg = parse_config(base + ["--train-masked-head", "true"])
+    check_ported(mcfg)
+    res, secs, counts = run_path(flat, mcfg, g, n_classes, counters)
+    tm = res["trainer"]
+    adj_out = tm._adj_out
+    m = adj_out.m
+    steps = len(res["history"])
+    evals = sum("val_f1" in rec for rec in res["history"]) + 1
+    want = {(n, n, hidden): 2 * steps + evals, (n, n, n_classes): evals,
+            (m, n, n_classes): steps, (n, m, n_classes): steps}
+    losses = [rec["loss"] for rec in res["history"]]
+    log(f"  masked-head flat GCN in {secs:.1f}s: M={m} train rows, {adj_out.n_edges} edges "
+        f"into them ({adj_out.n_edges / e:.1%} of E); CSR launches by (rows, cols, H) "
+        f"{counts['csr_shapes']} (expected {want}); loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"test acc {res['accuracy']:.4f}, macro-F1 {res['f1_macro']:.4f}")
+    if counts["csr_shapes"] != want or counts["dual"]:
+        fail(f"masked head: launches {counts}, expected {want}")
+    if len(losses) != epochs or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"masked head: losses {losses}")
+    # the first step against the full-output step, same parameters, dropout 0
+    model_m = make_model(mcfg.model, g.in_dim, n_classes,
+                         generator=torch.Generator().manual_seed(7)).to(dev)
+    model_m.dropout = 0.0
+    model_f = copy.deepcopy(model_m)
+    ones = torch.ones(m, dtype=torch.bool, device=dev)
+    logits_m = model_m(tm._adj, tm._feats, train=True, adj_out=adj_out)
+    loss_m = masked_cross_entropy(logits_m, y[adj_out.rows], ones)
+    grads_m = torch.autograd.grad(loss_m, list(model_m.parameters()))
+    logits_f = model_f(tm._adj, tm._feats, train=True)
+    loss_f = masked_cross_entropy(logits_f, y, train_mask)
+    grads_f = torch.autograd.grad(loss_f, list(model_f.parameters()))
+    bitwise_rows = bool(torch.equal(logits_m, logits_f[adj_out.rows]))
+    log(f"  first step at dropout 0: loss {loss_m.item():.7f} (masked head) vs "
+        f"{loss_f.item():.7f} (full output); the train rows' logits "
+        f"{'equal bit for bit' if bitwise_rows else 'differ in the last bits'}")
+    allclose("masked-head loss vs full-output loss", loss_m, loss_f, 1e-5, 1e-6)
+    for (name, _), gm, gf in zip(model_m.named_parameters(), grads_m, grads_f):
+        allclose(f"masked-head gradient {name} vs full output", gm, gf, 1e-5, 1e-6)
+    del logits_m, logits_f, grads_m, grads_f
+    # the restricted launches against the plain version, and their times
+    restricted_rows = []
+    for pname, csr in (("restricted fwd", adj_out.res.fwd), ("restricted bwd", adj_out.res.bwd)):
+        x = torch.randn(csr.n_cols, n_classes, generator=gen, device=dev)
+        got = kernel(csr, x)
+        errs.append(compare(f"{pname} [{csr.n_rows}, {csr.n_cols}] H={n_classes}", got,
+                            plain(csr, x), mag(csr, x), F32_RTOL))
+        empty = (csr.row_ptr[1:] == csr.row_ptr[:-1])
+        if got[empty].any():
+            fail(f"{pname}: rows with no edges are not exact zeros")
+        lib = sparse_csr(csr)
+        _, _, bound, bound_by = spmm_work(csr, n_classes, 4)
+        row = {"plan": pname, "n_rows": csr.n_rows, "n_cols": csr.n_cols, "h": n_classes,
+               "edges": csr.n_edges, "empty_rows": int(empty.sum()),
+               "launches": want[(csr.n_rows, csr.n_cols, n_classes)],
+               "ms": time_ms(lambda: kernel(csr, x), 50),
+               "plain_ms": time_ms(lambda: plain(csr, x), 5, warmup=1),
+               "library_ms": time_ms(lambda: torch.sparse.mm(lib, x), 20),
+               "bound_ms": bound, "bound_by": bound_by}
+        restricted_rows.append(row)
+        log(f"  spmm_csr {pname} ({row['empty_rows']} of {csr.n_rows} rows empty): kernel "
+            f"{row['ms']:.4f} ms, bound {bound:.4f} ms by {bound_by}, plain "
+            f"{row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms")
+    # step times: the masked head beside the full output, the same trainer
+    y_rows, adj_full = y[adj_out.rows], tm._adj
+    step_masked = lambda: tm._train_step(adj_full, tm._feats, y_rows, ones, adj_out)
+    step_full = lambda: tm._train_step(adj_full, tm._feats, y, train_mask)
+    masked_ms, full_ms = host_step_ms(step_masked), host_step_ms(step_full)
+    masked = {"seconds": secs, "m": m, "restricted_edges": adj_out.n_edges,
+              "launches": {str(k): v for k, v in counts["csr_shapes"].items()},
+              "step_ms": masked_ms,
+              "full_output_step_ms": full_ms, "first_step_rows_bitwise": bitwise_rows,
+              "restricted": restricted_rows}
+    timing = ""
+    if args.profile:
+        masked["device_busy_ms"] = profile_step(args.profile, card,
+                                                f"masked head, N={n} E={e} M={m}",
+                                                "masked_head", step_masked, masked_ms)
+        masked["full_output_device_busy_ms"] = profile_step(
+            args.profile, card, f"full output (beside the masked head), N={n} E={e}",
+            "full_output", step_full, full_ms)
+        timing = (f"; device busy {masked['device_busy_ms']:.3f} against "
+                  f"{masked['full_output_device_busy_ms']:.3f} ms")
+    log(f"  train step: masked head {masked_ms:.3f} ms, full output {full_ms:.3f} ms (host "
+        f"clock, 20 steps){timing}")
+    out["masked_head"] = masked
+    del res, tm
+
+    # ---- the cost model's constants, fitted from this run's timings
+    src, dst = np.asarray(g.edge_src, np.int64), np.asarray(g.edge_dst, np.int64)
+    norm_w, _ = gcn_normalize_np(src, dst, g.edge_w, n)
+    x600 = torch.randn(n, 6 * hidden, generator=gen, device=dev)
+    csr_ms_by_width = dict(csr_ms_by_width)
+    csr_ms_by_width[6 * hidden] = time_ms(lambda: kernel(plan.fwd, x600), 20)
+    seg_ms = {}
+    for h in (1, 14, 43, 100, 219):
+        xs = torch.randn(n, h, generator=gen, device=dev)
+        seg_ms[h] = time_ms(lambda: hybrid.segment_sum(adj.src, adj.dst, adj.w, xs, n), 3,
+                            warmup=1)
+    del xs
+    sweep = []
+    for k in K_SWEEP:
+        d32 = torch.randn(n, k, generator=gen, device=dev)
+        pair, dbf = fd.split_bf16(d32), d32.bfloat16()
+        for h in (hidden, n_classes):
+            x = torch.randn(n, h, generator=gen, device=dev)
+            xh = torch.randn(k, h, generator=gen, device=dev)
+            xb, xhb = x.bfloat16(), xh.bfloat16()
+            sweep.append({
+                "k": k, "h": h,
+                "split_ms": time_ms(lambda: fd.fused_dual_kernel(fd.SPLIT, *pair, x, xh), 10),
+                "f32_ms": time_ms(lambda: fd.fused_dual_kernel(fd.F32, d32, None, x, xh), 10),
+                "bf16_ms": time_ms(lambda: fd.fused_dual_kernel(fd.BF16, dbf, None, xb, xhb),
+                                   10),
+                "f32_mm_pair_ms": time_ms(lambda: (torch.mm(d32, xh), torch.mm(d32.t(), x)),
+                                          10)})
+        del d32, pair, dbf
+    rows_t = torch.as_tensor(np.flatnonzero(g.train_mask), device=dev)
+    slab = {}
+    for h in (8, n_classes):
+        dr = torch.randn(m, 4096, generator=gen, device=dev)
+        xh = torch.randn(4096, h, generator=gen, device=dev)
+        slab[h] = time_ms(lambda: torch.matmul(dr, xh), 20)
+    del dr, xh
+    at = lambda k, h, key: next(r[key] for r in sweep if r["k"] == k and r["h"] == h)
+    kk = max(K_SWEEP)
+    flops = lambda h: 4 * n * kk * h  # base flops of the dense pair
+    fit = {
+        "_HBM_BPS": n * kk * 4 / (at(kk, n_classes, "split_ms") * 1e-3),
+        "_MXU_F32_HIGHEST": flops(hidden) / (at(kk, hidden, "f32_mm_pair_ms") * 1e-3),
+        "_MXU_SPLIT_DENSE": flops(hidden) / (at(kk, hidden, "split_ms") * 1e-3),
+        "_CSR_EDGE_NS": {h: ms * 1e6 / e for h, ms in sorted(csr_ms_by_width.items())},
+        "_SEGMENT_EDGE_NS": {h: ms * 1e6 / e for h, ms in seg_ms.items()},
+        "_SLAB_BPS": m * 4096 * 4 / (slab[8] * 1e-3),
+        "_SLAB_FLOPS": 2 * m * 4096 * n_classes / (slab[n_classes] * 1e-3),
+    }
+    fit["_MXU_BF16_FACTOR"] = (flops(hidden) / (at(kk, hidden, "bf16_ms") * 1e-3)
+                               / fit["_MXU_F32_HIGHEST"])
+    in_use = {name: getattr(hybrid, name) for name in
+              ("_HBM_BPS", "_MXU_F32_HIGHEST", "_MXU_SPLIT_DENSE", "_MXU_BF16_FACTOR",
+               "_CSR_EDGE_NS", "_SEGMENT_EDGE_NS", "_HYBRID_NH_NS")}
+    in_use.update(_SLAB_BPS=_SLAB_BPS, _SLAB_FLOPS=_SLAB_FLOPS)
+    log(f"  cost model, fitted on {card}: {json.dumps(fit)}")
+    log(f"  cost model, in ops/hybrid.py and ops/restricted.py "
+        f"(COST_MODEL_VERSION {hybrid.COST_MODEL_VERSION}): {json.dumps(in_use)}")
+    for r in sweep:
+        log(f"  K sweep K={r['k']} H={r['h']}: split {r['split_ms']:.4f}, f32 "
+            f"{r['f32_ms']:.4f}, bf16 {r['bf16_ms']:.4f}, two f32 torch.mm "
+            f"{r['f32_mm_pair_ms']:.4f} ms")
+    log(f"  segment path ms by H: {seg_ms}; restricted slab [{m}, 4096] @ [4096, H] ms by H: "
+        f"{slab}")
+    out["cost_model"] = {"fit": fit, "in_use": in_use, "k_sweep": sweep, "segment_ms": seg_ms,
+                         "slab_ms": slab, "csr_ms_by_width": csr_ms_by_width}
+
+    # ---- 'auto' K at H = hidden: every candidate modeled, four measured
+    def rank_of(keys):
+        deg = np.bincount(keys, minlength=n)
+        r = np.empty(n, np.int64)
+        r[np.argsort(-deg, kind="stable")] = np.arange(n)
+        return r
+
+    rank = rank_of(src)
+    r_src, r_dst = rank[src], rank[dst]
+    candidates = (0, 512, 1024, 2048, 4096, 8192, 12288, 16384)
+    chosen = hybrid.choose_hot_k(src, n, h=hidden, itemsize=4, dst=dst, d_reads=1,
+                                 dense_split=True)
+    modeled = {0: e * hybrid.csr_edge_ns(hidden) / 1e6}
+    for k in candidates[1:]:
+        resid = int(np.sum((r_src >= k) & (r_dst >= k)))
+        modeled[k] = hybrid._predict_cost_ns(n, e, resid, k, hidden, 4, d_reads=1,
+                                             dense_split=True) / 1e6
+    measured = {}
+    x = torch.randn(n, hidden, generator=gen, device=dev)
+    for k in sorted({0, 1024, 2048, 4096, chosen}):
+        if k == 0:
+            measured[0] = time_ms(lambda: spmm_cuda.spmm_plan(plan, x), 20)
+            continue
+        hp = hybrid.build_hybrid_plan(src, dst, norm_w, n, hot_k=k, device=dev,
+                                      validate="fast", h_hint=hidden)
+        measured[k] = time_ms(lambda: hybrid.spmm_hybrid(hp, x), 10)
+        del hp
+    fastest = min(measured, key=measured.get)
+    # the hybrid's fixed passes over [N, H]: measured less modeled without them
+    fixed_ms = hybrid._HYBRID_NH_NS * n * hidden / 1e6
+    fit["_HYBRID_NH_NS"] = float(np.mean([measured[k] - modeled[k] + fixed_ms
+                                          for k in measured if k])) * 1e6 / (n * hidden)
+    log(f"  cost model, fitted: _HYBRID_NH_NS {fit['_HYBRID_NH_NS']:.5f} ns (in use "
+        f"{hybrid._HYBRID_NH_NS})")
+    log(f"  'auto' at H={hidden}: modeled ms {({k: round(v, 4) for k, v in modeled.items()})}; "
+        f"chosen K={chosen}; measured ms per application "
+        f"{({k: round(v, 4) for k, v in measured.items()})}; fastest K={fastest}")
+    # the two choosers' checks fail at the end of the phase, so that one
+    # run gives every measurement a recalibration needs
+    late = []
+    if measured[chosen] > 1.10 * measured[fastest]:
+        late.append(f"'auto' chose K={chosen} ({measured[chosen]:.4f} ms), more than 10% over "
+                    f"the fastest candidate K={fastest} ({measured[fastest]:.4f} ms)")
+    acfg = parse_config(base + ["--train-hybrid-k", "auto", "--train-use-pallas", "true"])
+    check_ported(acfg)
+    ares, asecs, acounts = run_path(flat, acfg, g, n_classes, counters)
+    a_steps = len(ares["history"])
+    a_expected = 4 * a_steps + 2 * (sum("val_f1" in r for r in ares["history"]) + 1)
+    a_plan = ares["trainer"]._adj.plan
+    want_dual = {} if chosen == 0 else {"split": a_expected}
+    log(f"  flat --train-hybrid-k auto in {asecs:.1f}s: plan {type(a_plan).__name__}"
+        f"{'' if chosen == 0 else f' K={a_plan.k}'}; CSR launches {acounts['csr']}, dual "
+        f"{acounts['dual']} (expected {a_expected} and {want_dual})")
+    if acounts["csr"] != a_expected or acounts["dual"] != want_dual or (
+            chosen == 0) != isinstance(a_plan, spmm_cuda.SpmmPlan):
+        fail(f"'auto' path: {acounts}, plan {type(a_plan).__name__}")
+    out["auto"] = {"h": hidden, "modeled_ms": modeled, "chosen": chosen,
+                   "measured_ms": measured, "fastest": fastest, "seconds": asecs,
+                   "launches": acounts["csr"]}
+    del ares
+
+    # ---- the restricted chooser at H = n_classes
+    rows = np.flatnonzero(g.train_mask)
+    local = np.full(n, -1, np.int64)
+    local[rows] = np.arange(m)
+    rsrc = src[local[dst] >= 0]
+    rchosen = choose_restricted_k(rsrc, n, m, h=n_classes)
+    rrank = rank_of(rsrc)[rsrc]
+    per_edge = min(hybrid.csr_edge_ns(n_classes), hybrid.segment_edge_ns(n_classes))
+    rmodeled = {0: len(rsrc) * per_edge / 1e6}
+    for k in RESTRICTED_CANDIDATES:
+        dense = max(m * k * 4 / _SLAB_BPS, 2 * m * k * n_classes / _SLAB_FLOPS) * 1e9
+        rmodeled[k] = (dense + int(np.sum(rrank >= k)) * per_edge) / 1e6
+    rmeasured = {}
+    x = torch.randn(n, n_classes, generator=gen, device=dev)
+    for k in (0,) + RESTRICTED_CANDIDATES:
+        ra = build_restricted_adj(g, rows, use_pallas=True, hot_k=k or None,
+                                  h_hint=n_classes, device=dev)
+        rmeasured[k] = time_ms(lambda: spmm_restricted(ra, x), 20)
+        del ra
+    rfastest = min(rmeasured, key=rmeasured.get)
+    log(f"  restricted chooser at H={n_classes}: modeled ms "
+        f"{({k: round(v, 4) for k, v in rmodeled.items()})}; chosen K={rchosen}; measured ms "
+        f"per application {({k: round(v, 4) for k, v in rmeasured.items()})}; fastest "
+        f"K={rfastest}")
+    if rmeasured[rchosen] > 1.10 * rmeasured[rfastest]:
+        late.append(f"the restricted chooser chose K={rchosen} ({rmeasured[rchosen]:.4f} ms), "
+                    f"more than 10% over the fastest K={rfastest} "
+                    f"({rmeasured[rfastest]:.4f} ms)")
+    out["restricted_auto"] = {"h": n_classes, "modeled_ms": rmodeled, "chosen": rchosen,
+                              "measured_ms": rmeasured, "fastest": rfastest}
+
+    # ---- the batched per-label ensemble through the per-label experiment
+    width = 6 * hidden
+    for csr_name, csr in (("fwd", plan.fwd), ("bwd", plan.bwd)):
+        errs.append(compare(f"f32 {csr_name} H={width}", kernel(csr, x600),
+                            chunked(plain, csr, x600), chunked(mag, csr, x600), F32_RTOL))
+    with tempfile.TemporaryDirectory() as tmp:
+        ecfg = parse_config(base + ["--train-ep", "true", "--result-file",
+                                    os.path.join(tmp, "rows.csv")])
+        check_ported(ecfg)
+        for reset, _ in counters.values():
+            reset()
+        t0 = time.perf_counter()
+        eres = perlabel.run(ecfg, g, cat1, cat2)
+        torch.cuda.synchronize()
+        esecs = time.perf_counter() - t0
+        ecounts = {name: read() for name, (_, read) in counters.items()}
+    sizes = [len(eres["mapping"][c]) for c in range(len(eres["trainers"]))]
+    c_max = max(sizes)
+    e_steps = len(eres["histories"][0])
+    want = {(n, n, width): 2 * e_steps + 1, (n, n, 6 * c_max): 2 * e_steps + 1}
+    log(f"  per-label --train-ep in {esecs:.1f}s: 6 members of {sizes} classes; CSR launches "
+        f"by (rows, cols, H) {ecounts['csr_shapes']} (expected {want}: one launch of width "
+        f"6 x {hidden} per application); test acc {eres['accuracy']:.4f}, macro-F1 "
+        f"{eres['f1_macro']:.4f}")
+    if len(sizes) != 6 or ecounts["csr_shapes"] != want or ecounts["dual"]:
+        fail(f"per-label --train-ep: launches {ecounts}, expected {want}")
+    for c, h in enumerate(eres["histories"]):
+        losses = [r["loss"] for r in h]
+        if len(losses) != epochs or not np.isfinite(losses).all() or (
+                sizes[c] > 1 and not losses[-1] < losses[0]) or (sizes[c] == 1 and any(losses)):
+            fail(f"per-label --train-ep member {c}: losses {losses}")
+    del eres
+    # the stacked members against six sequential ones from the same
+    # initialization, dropout 0
+    zcfg = parse_config(base + ["--model-dropout", "0"])
+    factory = lambda: (lambda i, o, gen_=torch.Generator().manual_seed(44):
+                       make_model(zcfg.model, i, o, generator=gen_))
+    kw = dict(epochs=epochs, seed=44, trainer_kwargs={"device": dev})
+    ep_run = train_per_label(g, cat2, cat1, factory(), ep=True, **kw)
+    seq_run = train_per_label(g, cat2, cat1, factory(), **kw)
+    ep_err = 0.0
+    for c, (te, ts) in enumerate(zip(ep_run["trainers"], seq_run["trainers"])):
+        for (name, pe), ps in zip(te.model.named_parameters(), ts.model.parameters()):
+            ep_err = max(ep_err, allclose(f"EP member {c} {name} vs sequential", pe, ps,
+                                          2e-4, 2e-5))
+    # step times: one batched step against the six sequential members' steps
+    models = [t.model for t in seq_run["trainers"]]
+    params = hpl._stack_members(models, sizes, dev)
+    opt = resolve_optimizer("adam", params, 0.05)
+    members = hpl._member_label_arrays(g, cat2, cat1, 6)
+    ym = torch.as_tensor(np.stack([yn for _, yn, _ in members], 1), dtype=torch.int64,
+                         device=dev)
+    mm = torch.as_tensor(np.stack([np.asarray(g.train_mask) & nm for _, _, nm in members], 1),
+                         device=dev).float()
+    gens = [torch.Generator(device=dev).manual_seed(44) for _ in models]
+    tadj, tfeats = seq_run["trainers"][0]._adj, seq_run["trainers"][0]._feats
+    ep_step = lambda: hpl.ep_train_step(params, opt, models[0], tadj, tfeats, ym, mm, gens)
+    ep_ms = host_step_ms(ep_step)
+    seq_ms = [host_step_ms(lambda t=t, yn=yn, nm=nm: t._train_step(
+        tadj, tfeats, torch.as_tensor(yn, dtype=torch.int64, device=dev),
+        torch.as_tensor(np.asarray(g.train_mask) & nm, device=dev)), reps=10)
+        for t, (_, yn, nm) in zip(seq_run["trainers"], members)]
+    ep = {"seconds": esecs, "sizes": sizes,
+          "launches": {str(k): v for k, v in ecounts["csr_shapes"].items()},
+          "step_ms": ep_ms, "sequential_step_ms": seq_ms, "max_abs_err_vs_sequential": ep_err}
+    timing = ""
+    if args.profile:
+        ep["device_busy_ms"] = profile_step(args.profile, card, f"per-label EP step, N={n}",
+                                            "perlabel_ep", ep_step, ep_ms)
+        timing = f", device busy {ep['device_busy_ms']:.3f} ms"
+    log(f"  EP train step {ep_ms:.3f} ms{timing} against {sum(seq_ms):.3f} ms for the six "
+        f"sequential members' steps ({[round(v, 3) for v in seq_ms]}; host clock)")
+    out["ep"] = ep
+    del ep_run, seq_run, params, opt
+    lib = sparse_csr(plan.fwd)
+    _, _, bound, bound_by = spmm_work(plan.fwd, width, 4)
+    h600 = {"h": width, "ms": csr_ms_by_width[width],
+            "plain_ms": time_ms(lambda: chunked(plain, plan.fwd, x600), 1, warmup=1),
+            "library_ms": time_ms(lambda: torch.sparse.mm(lib, x600), 5),
+            "bound_ms": bound, "bound_by": bound_by,
+            "launches": 2 * e_steps + 1}
+    log(f"  spmm_csr fwd H={width}: kernel {h600['ms']:.4f} ms, bound {bound:.4f} ms by "
+        f"{bound_by}, plain {h600['plain_ms']:.4f} ms, torch.sparse.mm "
+        f"{h600['library_ms']:.4f} ms")
+    del x600
+
+    # ---- the plan cache: cold build, warm load, the same bits and losses
+    with tempfile.TemporaryDirectory() as cache:
+        times = []
+        plans = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plans.append(NormAdj.from_graph(g, use_pallas=True, device=dev,
+                                            plan_cache=cache).plan)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        same = all(torch.equal(getattr(a, f), getattr(b, f))
+                   for a, b in ((plans[0].fwd, plans[1].fwd), (plans[0].bwd, plans[1].bwd))
+                   for f in ("row_ptr", "pairs", "seg_ptr", "seg_row", "seg_slot",
+                             "split_row", "split_ptr"))
+        if not same:
+            fail("plan cache: the loaded plan differs from the built one")
+        del plans
+        hists = []
+        with tempfile.TemporaryDirectory() as cache2:
+            pcfg = parse_config(base + ["--train-plan-cache", cache2])
+            check_ported(pcfg)
+            for _ in range(2):
+                r, _, _ = run_path(flat, pcfg, g, n_classes, counters)
+                hists.append([rec["loss"] for rec in r["history"]])
+                del r
+    log(f"  plan cache: cold build {times[0]:.2f} s, warm load {times[1]:.2f} s; loaded plan "
+        f"equal to the built one bit for bit; the flat run on a cold and on a warm cache: "
+        f"losses {'equal' if hists[0] == hists[1] else 'DIFFER'} ({hists[0]})")
+    if hists[0] != hists[1]:
+        fail(f"plan cache: the warm run's losses {hists[1]} differ from the cold run's")
+    out["plan_cache"] = {"cold_s": times[0], "warm_s": times[1], "bitwise": same,
+                         "losses": hists[0]}
+    torch.cuda.synchronize()
+    if late:
+        fail("; ".join(late))
+    return out, errs, {"restricted": restricted_rows, "h600": h600}
 
 
 def main(argv=None) -> int:
@@ -545,7 +1021,7 @@ def main(argv=None) -> int:
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/10] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
+    log(f"[1/11] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
         f"kernel, four of the dual kernel) and the native library in "
         f"{time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
@@ -566,7 +1042,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     g, n_classes = flat.build_graph(cfg)
     n, e = g.n_nodes, g.n_edges
-    log(f"[2/10] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
+    log(f"[2/11] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
         f"(vocab {g.n_vocab}, docs {g.n_docs}), {n_classes} classes")
     widths = (hidden, n_classes)
 
@@ -574,7 +1050,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     adj = NormAdj.from_graph(g, use_pallas=True, device=dev)
     plan = adj.plan
-    log(f"[3/10] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
+    log(f"[3/11] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
         f"segments, {plan.fwd.n_partials} partial rows (fwd); checks:")
     gen = torch.Generator(device=dev).manual_seed(0)
     f32_errs, bf16_errs = [], []
@@ -623,6 +1099,7 @@ def main(argv=None) -> int:
     # ------------------------------------------------------------ 4. main path
     counters = {
         "csr": (lambda: setattr(kernel, "launches", 0), lambda: kernel.launches),
+        "csr_shapes": (lambda: setattr(kernel, "shapes", {}), lambda: dict(kernel.shapes)),
         "dual": (lambda: setattr(dual, "launches", {}), lambda: dict(dual.launches)),
     }
     torch.cuda.reset_peak_memory_stats()
@@ -634,7 +1111,7 @@ def main(argv=None) -> int:
     evals = sum("val_f1" in rec for rec in hist) + 1  # + evaluate()
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
-    log(f"[4/10] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
+    log(f"[4/11] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
         f"passes, kernel launches {launches} (expected {expected}); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; test acc {res['accuracy']:.4f}, "
         f"macro-F1 {res['f1_macro']:.4f}; peak memory {peak_gb:.2f} GB")
@@ -689,14 +1166,14 @@ def main(argv=None) -> int:
     plan_s = time.perf_counter() - t0
     k = hplan.k
     d_bytes = 2 * hplan.d_full.numel() * hplan.d_full.element_size()
-    log(f"[5/10] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
+    log(f"[5/11] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
         f"pair of {d_bytes / 1e6:.1f} MB), {hplan.n_resid} residual edges "
         f"({hplan.n_resid / e:.1%} of E) on the CSR kernel")
     if hplan.d_lo is None or tuple(hplan.d_full.shape) != (n, k) or k != HOT_K:
         fail(f"hybrid plan: K={k}, D {tuple(hplan.d_full.shape)}, split {hplan.d_lo is not None}")
 
     # ------------------------------------------------------------ 6. dual kernel
-    log("[6/10] the dual kernel against its plain version (tolerance relative to "
+    log("[6/11] the dual kernel against its plain version (tolerance relative to "
         "|D| @ |xh| and |D|^T @ |x|):")
     pair = (hplan.d_full, hplan.d_lo)
     d32 = pair[0].float() + pair[1].float()  # the f32 D of the f32 variant
@@ -768,7 +1245,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 7. hybrid SpMM
-    log(f"[7/10] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
+    log(f"[7/11] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
         f"of |A_hat| @ |x|):")
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev, requires_grad=True)
@@ -806,7 +1283,7 @@ def main(argv=None) -> int:
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
     path_launches = {"split": hcounts["dual"].get("split", 0)}
-    log(f"[8/10] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
+    log(f"[8/11] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
         f"{evals} forward-only passes; dual kernel launches {hcounts['dual']}, CSR kernel "
         f"launches {hcounts['csr']} (expected {expected} each); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; test acc {hres['accuracy']:.4f}, macro-F1 {hres['f1_macro']:.4f}; "
@@ -855,17 +1332,14 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 9. times
-    log(f"[9/10] times on {card} (CUDA events, warm, per launch):")
+    log(f"[9/11] times on {card} (CUDA events, warm, per launch):")
     by_width = []
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev)
         xb = x.bfloat16()
         row = {"h": h}
         for pname, csr in (("fwd", plan.fwd), ("bwd", plan.bwd)):
-            lib = torch.sparse_csr_tensor(csr.row_ptr, csr.col.contiguous(),
-                                          csr.val.contiguous(),
-                                          size=(csr.n_rows, csr.n_cols),
-                                          check_invariants=False)
+            lib = sparse_csr(csr)
             compare(f"torch.sparse.mm {pname} H={h} vs kernel", torch.sparse.mm(lib, x),
                     kernel(csr, x), mag(csr, x), F32_RTOL)
             n_bytes, flops, bound, bound_by = spmm_work(csr, h, 4)
@@ -1029,9 +1503,17 @@ def main(argv=None) -> int:
         f"plain path {step_ms['plain']:.3f} ms (host clock, 20 steps)")
 
     # ------------------------------------------------------------ 10. models, hierarchies
-    paths, widths_run, width_errs, width_times = models_and_hierarchies(
+    paths, widths_run, width_errs, width_times, (cat1, cat2) = models_and_hierarchies(
         args, card, cfg, g, n_classes, hidden, plan, counters, gen, dev)
     f32_errs += width_errs
+
+    # ------------------------------------------------------------ 11. operator options
+    csr_ms_by_width = {r["h"]: r["ms"] for r in width_times}
+    csr_ms_by_width.update((row["h"], row["fwd"]["ms"]) for row in by_width)
+    options, option_errs, option_rows = operator_options(
+        args, card, g, n_classes, hidden, adj, counters, gen, dev, cat1, cat2,
+        csr_ms_by_width)
+    f32_errs += option_errs
 
     def dual_entry(key, replaces, path):
         rows = dual_rows[key]
@@ -1079,6 +1561,9 @@ def main(argv=None) -> int:
         "models_hierarchies": paths,
         "widths_run_models_hierarchies": widths_run,
         "by_width_models_hierarchies": width_times,
+        "restricted_plans": option_rows["restricted"],
+        "ensemble_width": option_rows["h600"],
+        "operator_options": options,
     },
         {**dual_entry("split", "pytextgcn_tpu/ops/fused_dual.py:185",
                       f"flat.run --train-hybrid-k {HOT_K} (f32 split2, the default), "

@@ -6,8 +6,9 @@ differences:
 
 * ``--train-use-pallas`` defaults to true: the port's aggregation runs in
   its hand-written CUDA kernel unless asked otherwise. The hybrid
-  decomposition runs with an integer ``--train-hybrid-k``; the default
-  'auto-tpu' means off here, as on any JAX backend that is not a TPU.
+  decomposition runs with an integer ``--train-hybrid-k`` or with 'auto'
+  (the cost model on H100 constants); the default 'auto-tpu' means off
+  here, as on any JAX backend that is not a TPU.
 * ``--device`` picks the device: the GPU when it is not given (the run
   raises if there is none), ``cpu`` runs the kernel's plain version.
 
@@ -59,8 +60,8 @@ class TrainConfig:
     # runs the plain gather/index_add_ path
     use_pallas: bool = True
     # dense-hot/sparse-cold SpMM (ops/hybrid.py): an integer hot-set size,
-    # or 'off'/'0'; 'auto-tpu' resolves to off on a GPU, 'auto' (the cost
-    # model) is not ported yet
+    # 'auto' (the cost model on H100 constants), or 'off'/'0'; 'auto-tpu'
+    # resolves to off on a GPU
     hybrid_k: str = "auto-tpu"
     # the dual kernel for the hybrid's f32 'highest' dense pair: auto | on | off
     hybrid_fused: str = "auto"
@@ -74,14 +75,16 @@ class TrainConfig:
     debug_checks: bool = False  # not ported yet
     # 'default' = torch Adam(amsgrad=True); or 'adam' | 'torch_amsgrad'
     optimizer: str = "default"
-    plan_cache: str = ""  # not ported yet
+    plan_cache: str = ""  # directory of persisted plans (ops/plan_cache.py)
     # XLA compile cache of the JAX experiment scripts; the port compiles only its
     # kernel, which is cached in the package's _build directory
     compile_cache: str = ".xla_cache"
-    masked_head: bool = False  # not ported yet
+    # the final layer aggregates into the train rows only (ops/restricted.py)
+    masked_head: bool = False
     sharding: str = "off"  # not ported yet
-    n_devices: int = 0
-    ep: bool = False  # not ported yet
+    n_devices: int = 0  # > 1 (the ensemble across devices) is not ported yet
+    # per-label: all members in one batched step (hierarchy/perlabel.py)
+    ep: bool = False
     verbose: int = 1
 
 
@@ -226,24 +229,28 @@ def check_ported(cfg: ExperimentConfig) -> None:
     """Stop with a message naming ROADMAP.md when the config asks for
     anything this port does not have yet."""
     t = cfg.train
+    if t.masked_head and cfg.model.model == "jk":
+        # the JAX package's JK network takes no masked head either
+        raise SystemExit("--train-masked-head: the JK network has no masked head "
+                         "(its LSTM reads every layer's full output)")
     missing = []
     if cfg.dataset not in ("synthetic", "synthetic-amazon", "synthetic-dbpedia"):
         missing.append(f"--dataset {cfg.dataset}")
     if cfg.model.model not in ("gcn", "egcn", "jk"):
         missing.append(f"--model-model {cfg.model.model}")
-    if hybrid_k_arg(t) == "auto":  # the cost model has no H100 constants yet
-        missing.append("--train-hybrid-k auto")
-    hybrid_fused_arg(t)  # these two raise on a value they do not know
+    hybrid_k_arg(t)  # these three raise on a value they do not know
+    hybrid_fused_arg(t)
     hybrid_f32_mode_arg(t)
     if not _off(t.sharding, "off", "none", ""):
         missing.append(f"--train-sharding {t.sharding}")
     if t.batch_size > 0:
         missing.append("--train-batch-size > 0")
-    for flag in ("masked_head", "ep", "debug_checks"):
-        if getattr(t, flag):
-            missing.append(f"--train-{flag.replace('_', '-')}")
-    if t.plan_cache:
-        missing.append("--train-plan-cache")
+    if t.debug_checks:
+        missing.append("--train-debug-checks")
+    if t.ep and cfg.model.model != "gcn":
+        missing.append(f"--train-ep with --model-model {cfg.model.model}")
+    if t.ep and t.n_devices > 1:
+        missing.append(f"--train-ep across --train-n-devices {t.n_devices}")
     if t.optimizer == "optax_amsgrad":
         missing.append("--train-optimizer optax_amsgrad")
     if missing:

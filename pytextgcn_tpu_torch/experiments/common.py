@@ -113,6 +113,8 @@ def trainer_kwargs(cfg: ExperimentConfig, default_optimizer: Optional[str] = Non
         "hybrid_k": hybrid_k_arg(cfg.train),
         "hybrid_fused": hybrid_fused_arg(cfg.train),
         "hybrid_f32_mode": hybrid_f32_mode_arg(cfg.train),
+        "masked_head": cfg.train.masked_head,
+        "plan_cache": cfg.train.plan_cache or None,
     }
 
 

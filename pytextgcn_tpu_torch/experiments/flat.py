@@ -13,6 +13,8 @@ Examples:
     python -m pytextgcn_tpu_torch.experiments.flat --device cpu --train-epochs 40
     python -m pytextgcn_tpu_torch.experiments.flat --dataset synthetic-amazon \\
         --train-hybrid-k 4096                     # the hybrid SpMM
+    python -m pytextgcn_tpu_torch.experiments.flat --dataset synthetic-amazon \
+        --train-hybrid-k auto --train-masked-head true --train-plan-cache plans
     python -m pytextgcn_tpu_torch.experiments.flat --device cpu --model-model jk
 """
 

@@ -7,7 +7,9 @@ members as ``DIR/lvl2-cat{c}`` beside ``DIR/class_mapping.json``;
 ``--eval-only`` loads them from there and only runs the inference.
 ``--route predicted`` routes test documents by a level-1 flat model's
 predictions instead of their true parent (the reference's quirk, the
-default ``ground_truth``).
+default ``ground_truth``). ``--train-ep true`` trains the members in one
+batched step (one CSR kernel launch of width members x hidden per
+application).
 
 Examples:
     python -m pytextgcn_tpu_torch.experiments.perlabel --device cpu   # synthetic
@@ -15,6 +17,8 @@ Examples:
         --levels Cat1 Cat2 --graph-max-df 0.6 --save-model models/amazon
     python -m pytextgcn_tpu_torch.experiments.perlabel --dataset synthetic-amazon \\
         --levels Cat1 Cat2 --graph-max-df 0.6 --save-model models/amazon --eval-only
+    python -m pytextgcn_tpu_torch.experiments.perlabel --dataset synthetic-amazon \
+        --levels Cat1 Cat2 --graph-max-df 0.6 --train-ep true
 """
 
 from __future__ import annotations
@@ -73,7 +77,7 @@ def run(cfg, g, y_parent, y_child, route: str = "ground_truth", eval_only: bool 
             model_factory=lambda d_in, d_out: make_model(cfg.model, d_in, d_out,
                                                          generator=gen),
             lr=cfg.train.lr, epochs=cfg.train.epochs, seed=cfg.train.seed,
-            verbose=cfg.train.verbose, save_dir=cfg.save_model,
+            verbose=cfg.train.verbose, save_dir=cfg.save_model, ep=cfg.train.ep,
             # the hierarchy protocols' default is plain Adam (perlabel_amazon.py:124)
             trainer_kwargs=common.trainer_kwargs(cfg, "adam"),
         )

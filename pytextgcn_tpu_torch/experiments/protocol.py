@@ -7,7 +7,11 @@ hierarchy drivers) on the protocol-scale synthetic corpora, with the same
 graph knobs, per-seed masks and trainer settings, on the CSR kernel path
 in full f32 (TF32 off). The graph is built once per protocol and
 hierarchy; each seed redraws the masks. Rows go to the reference's
-results.csv schema with category ``torch-cuda``.
+results.csv schema with category ``torch-cuda`` (``torch-cpu`` for a run on
+the CPU). ``--masked-head`` (flat:
+the train rows' head, ops/restricted.py) and ``--ep`` (per-label: the
+batched ensemble, as ``experiments/protocol_parity.py --ep``) tag their
+rows' hierarchy ``flat masked-head`` and ``per-label ep``.
 
     python -m pytextgcn_tpu_torch.experiments.protocol --protocol amazon \\
         --model gcn --hierarchy flat --seeds 42 43 44
@@ -15,6 +19,8 @@ results.csv schema with category ``torch-cuda``.
         --hierarchy perlevel
     python -m pytextgcn_tpu_torch.experiments.protocol --device cpu --n-docs 2000 \\
         --epochs 5 --out "$(mktemp -d)/rows.csv"   # a small run on the CPU
+    python -m pytextgcn_tpu_torch.experiments.protocol --protocol amazon \
+        --hierarchy perlabel --ep
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ PROTOCOLS = {
         epochs=100, lr=0.05, dropout=0.5, n_hidden=32, hier_max_df=0.4,
     ),
 }
-CATEGORY = "torch-cuda"
+CATEGORY = {"cuda": "torch-cuda", "cpu": "torch-cpu"}  # rows of a CPU run say so
 HIERARCHY_NAMES = {"flat": "flat", "perlevel": "per-level", "perlabel": "per-label"}
 
 
@@ -105,7 +111,8 @@ def run_seed(args, p, gs, level_labels, seed, device, prev):
     factory = model_factory(args.model, p, torch.Generator().manual_seed(seed))
     if args.hierarchy == "flat":
         n_classes = int(np.max(gs.y)) + 1
-        tr = Trainer(factory(gs.in_dim, n_classes), lr=p["lr"], seed=seed, device=device)
+        tr = Trainer(factory(gs.in_dim, n_classes), lr=p["lr"], seed=seed, device=device,
+                     masked_head=args.masked_head)
         if prev is not None:
             # remask only redraws masks: the operator is the same
             tr.share_adjacency(prev)
@@ -121,7 +128,7 @@ def run_seed(args, p, gs, level_labels, seed, device, prev):
         return dict(res["metrics"]), None
     y_child, y_parent = level_labels[-1], level_labels[-2]
     ens = train_per_label(gs, y_child, y_parent, factory, lr=p["lr"], epochs=p["epochs"],
-                          seed=seed, verbose=args.verbose, trainer_kwargs=tkw)
+                          seed=seed, verbose=args.verbose, trainer_kwargs=tkw, ep=args.ep)
     # ground-truth routing is the reference quirk (eval_perlabel.py:73)
     m = eval_per_label(gs, y_child, y_parent, ens["trainers"], ens["mapping"],
                        route="ground_truth")
@@ -139,8 +146,16 @@ def main(argv=None):
                     help="0 = the protocol's epoch count (set it for smoke runs)")
     ap.add_argument("--out", default="docs/protocol_results_port.csv")
     ap.add_argument("--device", default=None, help="default: the GPU (raises without one)")
+    ap.add_argument("--masked-head", action="store_true",
+                    help="flat: aggregate the final layer into the train rows only")
+    ap.add_argument("--ep", action="store_true",
+                    help="per-label: train the members in one batched step")
     ap.add_argument("--verbose", type=int, default=1)
     args = ap.parse_args(argv)
+    if args.masked_head and args.hierarchy != "flat":
+        ap.error("--masked-head runs the flat protocol only")
+    if args.ep and args.hierarchy != "perlabel":
+        ap.error("--ep runs the per-label protocol only")
 
     device = resolve_device(args.device)
     exact_f32()
@@ -150,7 +165,8 @@ def main(argv=None):
     n_docs = args.n_docs or (50_000 if args.protocol == "amazon" else 60_000)
     g, level_labels, n_train, n_val = build_graph(args.protocol, n_docs, args.verbose,
                                                   hierarchy=args.hierarchy)
-    hier = HIERARCHY_NAMES[args.hierarchy]
+    hier = HIERARCHY_NAMES[args.hierarchy] + (" masked-head" if args.masked_head else "") + (
+        " ep" if args.ep else "")
     rows, prev = [], None
     for seed in args.seeds:
         gs = remask(g, args.protocol, n_train, n_val, seed)
@@ -170,7 +186,7 @@ def main(argv=None):
               + ")", flush=True)
         append_result(args.out, seed=seed, model=args.model.upper(), hierarchy=hier,
                       f1_macro=m["f1_macro"], accuracy=m["accuracy"],
-                      dataset=f"synthetic-{args.protocol}", category=CATEGORY)
+                      dataset=f"synthetic-{args.protocol}", category=CATEGORY[device.type])
     accs = [m["accuracy"] for m in rows]
     f1s = [m["f1_macro"] for m in rows]
     print(json.dumps({

@@ -14,7 +14,15 @@ Routing: the reference routes by the **ground-truth** parent label
 that quirk is the default (``route='ground_truth'``), ``route='predicted'``
 routes by ``parent_pred``.
 
-The JAX package's expert-parallel step (``mesh``) is not ported yet.
+The batched ensemble (``ep=True``, the JAX package's expert-parallel step
+on one device): every member steps together, its parameters stacked
+``[M, ...]`` and padded to the largest class count with zero weight
+columns and a ``-1e9`` bias, whose logits get probability 0 and exactly
+zero gradients. Where the JAX package vmaps the members' SpMMs, the
+port applies ``A_hat`` once to the members' activations laid side by
+side, ``[N, M * H]``: one CSR kernel launch of width M * H per
+application instead of M of width H, the same function. Composed
+inference runs all members in one such pass too.
 """
 
 from __future__ import annotations
@@ -28,10 +36,19 @@ import numpy as np
 import torch
 
 from ..core.graph import TextGraph
-from ..models import export_params
+from ..models import GCN, export_params
+from ..models.layers import dropout
+from ..ops.adjacency import NormAdj
+from ..ops.features import NodeFeatures
+from ..ops.spmm import spmm
 from ..train.checkpoint import save_checkpoint
 from ..train.metrics import accuracy, macro_f1
+from ..train.optim import resolve_optimizer
 from ..train.trainer import Trainer
+
+# padded class logits: exp() underflows to exactly 0 in f32, so padded
+# columns get exactly zero gradients and never win an argmax
+_PAD_BIAS = -1e9
 
 
 def _member_label_arrays(g: TextGraph, y_child, y_parent, n_parents):
@@ -62,9 +79,12 @@ def train_per_label(
     save_dir: Optional[str] = None,
     trainer_kwargs: Optional[dict] = None,
     mesh=None,
+    ep: bool = False,
 ):
     """Train one child-label classifier per parent class, one after the
-    other.
+    other, or, with ``ep`` (or a ``mesh`` of one device: an int device
+    count or an object with a ``devices`` array), all in one batched step
+    (see the module docstring; GCN members only).
 
     Returns ``{"trainers": [...], "mapping": {parent: [global child ids]},
     "histories": [...]}``: the mapping holds, per parent class, the sorted
@@ -75,8 +95,18 @@ def train_per_label(
     ``class_mapping.json``.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "the expert-parallel per-label step (mesh) is not ported yet (see ROADMAP.md)")
+        devices = getattr(mesh, "devices", None)
+        n_dev = mesh if isinstance(mesh, int) else -1 if devices is None else np.asarray(
+            devices).size
+        if n_dev != 1:
+            raise NotImplementedError(
+                "the ensemble across devices (parallel/) is not ported yet (see "
+                "ROADMAP.md); a mesh of one device runs the batched step")
+        ep = True
+    if ep:
+        return _train_per_label_ep(g, y_child, y_parent, model_factory, lr=lr, epochs=epochs,
+                                   seed=seed, verbose=verbose, save_dir=save_dir,
+                                   trainer_kwargs=trainer_kwargs)
     trainer_kwargs = dict(trainer_kwargs or {})
     # the reference's per-label driver trains with PLAIN Adam, not amsgrad
     # (perlabel_amazon.py:124)
@@ -116,6 +146,180 @@ def train_per_label(
     return {"trainers": trainers, "mapping": mapping, "histories": histories}
 
 
+def _stack_members(models: List[GCN], c_list: List[int], device) -> List[torch.Tensor]:
+    """The members' parameters stacked in ``parameters()`` order (each
+    layer's w, then b): the first layer's w as ``[in, M, H]``, so that the
+    members' feature products are one ``[in, M * H]`` matrix without a
+    copy, every other parameter ``[M, ...]``; the last layer padded to the
+    largest class count with zero weight columns and a ``_PAD_BIAS`` bias."""
+    c_max = max(c_list)
+    last = 2 * (len(models[0].layers) - 1)  # index of the last layer's w
+    out = []
+    for j, params in enumerate(zip(*(m.parameters() for m in models))):
+        rows = []
+        for p, c in zip(params, c_list):
+            p = p.detach()
+            if j >= last and c < c_max:
+                p = torch.nn.functional.pad(p, (0, c_max - c),
+                                            value=0.0 if j == last else _PAD_BIAS)
+            rows.append(p)
+        out.append(torch.stack(rows, dim=1 if j == 0 else 0).to(device).requires_grad_(True))
+    return out
+
+
+def _member(j: int, stacked: torch.Tensor, i: int) -> torch.Tensor:
+    """Member ``i``'s slice of stacked parameter ``j`` (still padded)."""
+    return stacked[:, i] if j == 0 else stacked[i]
+
+
+def _stacked_logits(params: List[torch.Tensor], model: GCN, adj, feats: NodeFeatures,
+                    train: bool = False, generators=None) -> torch.Tensor:
+    """``[N, M, C_max]`` logits of M stacked GCNs (``model`` gives the
+    architecture): each aggregation is one SpMM over ``[N, M * width]``.
+    Member m's dropout masks come from ``generators[m]`` in the order its
+    own model would draw them."""
+    ws, bs = params[0::2], params[1::2]
+    m_count = ws[0].shape[1]
+
+    def aggregate(xw):  # [N, M, d] -> [N, M * d] -> A_hat @ . -> [N, M, d]
+        n, _, d = xw.shape
+        return spmm(adj, xw.reshape(n, m_count * d)).reshape(n, m_count, d)
+
+    w0 = ws[0]  # [in, M, H]
+    xw = feats.matmul(w0.reshape(w0.shape[0], -1)).reshape(-1, m_count, w0.shape[2])
+    h = aggregate(xw) + bs[0]
+    for w, b in zip(ws[1:], bs[1:]):
+        if model.activation is not None:
+            h = model.activation(h)
+        if train and model.dropout:
+            h = torch.stack([dropout(h[:, i], model.dropout, True, generators[i])
+                             for i in range(m_count)], dim=1)
+        # the members' products as one against their block-diagonal weights
+        # (zeros off the blocks add nothing): a batched product of M skinny
+        # [N, H] @ [H, C] runs far slower on the card, its backward most
+        n, _, d = h.shape
+        hw = h.reshape(n, m_count * d) @ torch.block_diag(*w.unbind(0))
+        h = aggregate(hw.reshape(n, m_count, -1)) + b
+    return h
+
+
+def ep_train_step(params: List[torch.Tensor], opt: torch.optim.Optimizer, model: GCN, adj,
+                  feats: NodeFeatures, y: torch.Tensor, mask: torch.Tensor,
+                  generators) -> torch.Tensor:
+    """One batched train step of the stacked members: forward, each
+    member's masked cross-entropy (``y``, ``mask``: ``[N, M]``), one
+    backward pass of their sum, one optimizer step. Returns the ``[M]``
+    losses."""
+    opt.zero_grad(set_to_none=True)
+    logits = _stacked_logits(params, model, adj, feats, train=True, generators=generators)
+    nll = -torch.log_softmax(logits, dim=-1).gather(-1, y[..., None])[..., 0]
+    losses = (nll * mask).sum(0) / mask.sum(0).clamp(min=1.0)  # as masked_cross_entropy
+    losses.sum().backward()
+    opt.step()
+    return losses.detach()
+
+
+def _architecture(models) -> Optional[tuple]:
+    """The shape of the members' GCN apart from its class count, or None
+    when they differ or are not plain GCNs (no batched pass then)."""
+    keys = {(type(m), m.in_dim, m.n_gcn, m.n_hidden, m.dropout, m.activation)
+            if type(m) is GCN else None for m in models}
+    return keys.pop() if len(keys) == 1 else None
+
+
+def _train_per_label_ep(g: TextGraph, y_child, y_parent, model_factory, *, lr: float,
+                        epochs: int, seed: int, verbose: int, save_dir: Optional[str],
+                        trainer_kwargs: Optional[dict]):
+    """All members in one batched train step (the JAX package's
+    ``_train_per_label_ep`` on one device). Each member is initialized by
+    ``model_factory`` in the sequential path's order, draws its dropout
+    from the generator its sequential Trainer would use, and its masked
+    cross-entropy is summed with the others' before one backward pass, so
+    the trajectory is the sequential one's. One optimizer over the stacked
+    parameters equals one per member: Adam is elementwise and every
+    member steps on every step. The returned Trainers carry their
+    member's parameters, optimizer state and generator, ready to refit."""
+    trainer_kwargs = dict(trainer_kwargs or {})
+    if trainer_kwargs.get("optimizer") is None:
+        trainer_kwargs["optimizer"] = "adam"  # perlabel_amazon.py:124
+    y_child = np.asarray(y_child, np.int64)
+    y_parent = np.asarray(y_parent, np.int64)
+    members = _member_label_arrays(g, y_child, y_parent, int(y_parent.max()) + 1)
+    mapping = {c: classes.tolist() for c, (classes, _, _) in enumerate(members)}
+    c_list = [len(classes) for classes, _, _ in members]
+    models = [model_factory(g.in_dim, c) for c in c_list]
+    if _architecture(models) is None:
+        raise NotImplementedError(
+            "the batched ensemble (--train-ep) runs GCN members of one architecture; "
+            "other models are not ported to it yet (see ROADMAP.md)")
+    trainers = [Trainer(m, lr=lr, seed=seed, **trainer_kwargs) for m in models]
+    lead = trainers[0]
+    dev = lead.device
+    adj = NormAdj.from_graph(
+        g, use_pallas=lead.use_pallas, pallas_dtype=lead.pallas_dtype, device=dev,
+        hybrid_k=lead.hybrid_k, hybrid_fused=lead.hybrid_fused,
+        hybrid_f32_mode=lead.hybrid_f32_mode, hybrid_batch=len(models),
+        h_hint=models[0].n_hidden, plan_cache=lead.plan_cache)
+    feats = NodeFeatures.from_graph(g, device=dev)
+    for t in trainers:  # the returned members adopt the operator
+        t._adj, t._adj_key, t._feats = adj, (g.edge_src, g.edge_w, g.n_nodes), feats
+
+    params = _stack_members(models, c_list, dev)
+    opt = resolve_optimizer(trainer_kwargs["optimizer"], params, lr)
+    y = torch.as_tensor(np.stack([yn for _, yn, _ in members], 1), dtype=torch.int64,
+                        device=dev)  # [N, M]
+    mask = torch.as_tensor(np.stack([np.asarray(g.train_mask) & nm for _, _, nm in members],
+                                    1), device=dev).float()
+    gens = [t.generator for t in trainers]
+    histories = [[] for _ in models]
+    for epoch in range(epochs):
+        losses = ep_train_step(params, opt, models[0], adj, feats, y, mask, gens)
+        for hist, loss in zip(histories, losses):
+            hist.append({"loss": loss})
+        if verbose > 0 and (epoch + 1) % 50 == 0:
+            print(f"[EP {epoch + 1}] member losses: {losses.cpu().numpy()}")
+
+    state = opt.state_dict()["state"]
+    with torch.no_grad():
+        for i, t in enumerate(trainers):
+            member_state = {}
+            for j, (p, stacked) in enumerate(zip(t.model.parameters(), params)):
+                # the padded class columns cut off: the member's own shape
+                p.copy_(_member(j, stacked, i)[..., :p.shape[-1]])
+                member_state[j] = {
+                    k: v.clone() if v.dim() == 0 else _member(j, v, i)[..., :p.shape[-1]].clone()
+                    for k, v in state[j].items()}
+            sd = t.optimizer.state_dict()
+            t.optimizer.load_state_dict({"state": member_state,
+                                         "param_groups": sd["param_groups"]})
+    if save_dir is not None:
+        for c, t in enumerate(trainers):
+            save_checkpoint(os.path.join(save_dir, f"lvl2-cat{c}"), export_params(t.model),
+                            meta={"parent": c, "classes": mapping[c]})
+        with open(os.path.join(save_dir, "class_mapping.json"), "w") as f:
+            json.dump({str(k): v for k, v in mapping.items()}, f)
+    histories = [[{"loss": float(r["loss"])} for r in h] for h in histories]
+    return {"trainers": trainers, "mapping": mapping, "histories": histories}
+
+
+def _batched_member_preds(g_eval: TextGraph, trainers: List[Trainer],
+                          c_list: List[int]) -> Optional[np.ndarray]:
+    """Every member's document predictions in one forward pass of the
+    stacked, padded members (padded columns never win): ``[M, n_docs]``,
+    or None when the members do not stack (the member loop then runs)."""
+    models = [t.model for t in trainers]
+    if len(trainers) < 2 or _architecture(models) is None:
+        return None
+    adj, feats = trainers[0].prepare(g_eval)
+    with torch.no_grad():
+        params = _stack_members(models, c_list, trainers[0].device)
+        logits = _stacked_logits(params, models[0], adj, feats)[g_eval.n_vocab:]
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        c = torch.as_tensor(c_list, device=logits.device)
+        logits = torch.where(col < c[:, None], logits, -torch.inf)
+        return logits.argmax(dim=-1).t().cpu().numpy()
+
+
 def eval_per_label(
     g: TextGraph,
     y_child: np.ndarray,
@@ -125,9 +329,10 @@ def eval_per_label(
     parent_pred: Optional[np.ndarray] = None,
     route: str = "ground_truth",
 ):
-    """Composed hierarchical inference (eval_perlabel.py:57-85), one member
-    at a time (the JAX package's fallback to its batched pass, which gives
-    the same predictions).
+    """Composed hierarchical inference (eval_perlabel.py:57-85): every
+    member in one batched forward pass when they stack (GCNs of one
+    architecture), else one member at a time; the two give the same
+    predictions.
 
     ``route='ground_truth'`` routes each test document by its true parent
     class, as the reference does; ``route='predicted'`` by ``parent_pred``
@@ -152,12 +357,17 @@ def eval_per_label(
     g_eval = dataclasses.replace(g, y=y_nodes)
 
     predictions = np.full(len(y_child), -1, np.int64)
+    c_list = [len(mapping[c]) for c in range(len(trainers))]
+    preds_all = _batched_member_preds(g_eval, trainers, c_list)
     for c, trainer in enumerate(trainers):
         sel = (router == c) & test_docs
         if not sel.any():
             continue
-        logits = trainer.predict_logits(g_eval)[g.n_vocab:]
-        local_pred = logits.argmax(dim=-1).cpu().numpy()[sel]
+        if preds_all is not None:
+            local_pred = preds_all[c][sel]
+        else:
+            logits = trainer.predict_logits(g_eval)[g.n_vocab:]
+            local_pred = logits.argmax(dim=-1).cpu().numpy()[sel]
         predictions[sel] = np.asarray(mapping[c], np.int64)[local_pred]
 
     # shift by 1 so an unrouted -1 becomes its own (always wrong) label,

@@ -86,23 +86,19 @@ class GCN(nn.Module):
         adj_out=None,
     ) -> torch.Tensor:
         """Logits [N, out_dim]. ``generator`` draws the dropout masks when
-        ``train``. ``adj_out`` (the JAX package's output-row-restricted
-        head operator, ops/restricted.py) is not ported yet."""
-        _refuse_adj_out(adj_out)
+        ``train``. ``adj_out``: an output-row-restricted operator
+        (ops/restricted.py) for the final layer's aggregation, the masked
+        head's training path: the logits are then ``[M, out_dim]`` for its
+        M rows. Evaluation passes None."""
         first, *rest = self.layers
         h = spmm(adj, feats.matmul(first.w)) + first.b
-        for layer in rest:
+        for i, layer in enumerate(rest):
             if self.activation is not None:
                 h = self.activation(h)
             h = dropout(h, self.dropout, train, generator)
-            h = spmm(adj, h @ layer.w) + layer.b
+            a = adj_out if (adj_out is not None and i == len(rest) - 1) else adj
+            h = spmm(a, h @ layer.w) + layer.b
         return h
-
-
-def _refuse_adj_out(adj_out) -> None:
-    if adj_out is not None:
-        raise NotImplementedError(
-            "the masked-head operator (adj_out) is not ported yet (ROADMAP.md)")
 
 
 class EGCN(GCN):
@@ -139,11 +135,14 @@ class EGCN(GCN):
 
     def forward(self, adj: NormAdj, feats: NodeFeatures, *, train: bool = False,
                 generator: Optional[torch.Generator] = None, adj_out=None) -> torch.Tensor:
-        _refuse_adj_out(adj_out)
+        """As :meth:`GCN.forward`. Under ``adj_out`` the dropout on the logits
+        draws an ``[M, out_dim]`` mask, so a masked-head run is statistically
+        equal to the full-output one, not equal step for step."""
         h = torch.selu(feats.matmul(self.embed.w) + self.embed.b)
         h = dropout(h, self.dropout, train, generator)
-        for layer in self.layers:
-            h = spmm(adj, h @ layer.w) + layer.b
+        for i, layer in enumerate(self.layers):
+            a = adj_out if (adj_out is not None and i == len(self.layers) - 1) else adj
+            h = spmm(a, h @ layer.w) + layer.b
             if self.activation is not None:
                 h = self.activation(h)
             h = dropout(h, self.dropout, train, generator)

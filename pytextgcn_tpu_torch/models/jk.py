@@ -18,8 +18,11 @@ from torch import nn
 from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
 from ..ops.spmm import spmm
-from .gcn import GraphConv, _refuse_adj_out
+from .gcn import GraphConv
 from .layers import LSTM_LEAVES, Dense, bilstm, dropout
+
+JK_NO_MASKED_HEAD = ("the JK network has no masked head (masked_head=True): its LSTM "
+                     "reads every layer's full output")
 
 
 class JumpingKnowledgeNetwork(nn.Module):
@@ -74,7 +77,10 @@ class JumpingKnowledgeNetwork(nn.Module):
 
     def forward(self, adj: NormAdj, feats: NodeFeatures, *, train: bool = False,
                 generator: Optional[torch.Generator] = None, adj_out=None) -> torch.Tensor:
-        _refuse_adj_out(adj_out)
+        if adj_out is not None:
+            # the JAX package's JumpingKnowledgeNetwork.apply takes no adj_out
+            # (models/jk.py:63): its masked head fails there, and is refused here
+            raise ValueError(JK_NO_MASKED_HEAD)
         first, *rest = self.layers
         h = spmm(adj, feats.matmul(first.w)) + first.b
         # the reference applies dropout after every layer (models.py:70-73)

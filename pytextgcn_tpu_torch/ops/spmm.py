@@ -2,7 +2,9 @@
 
 ``spmm(adj, x)`` computes ``A_hat @ x`` for the normalized adjacency:
 ``out[i] = self_w[i] * x[i] + sum_{e: dst[e]==i} w[e] * x[src[e]]``.
-Port of ``pytextgcn_tpu/ops/spmm.py``. Three paths:
+Port of ``pytextgcn_tpu/ops/spmm.py``. Three paths, and the
+output-row-restricted operator of the masked head
+(:mod:`.restricted`, ``[M, H]`` out):
 
 * hybrid plan: the dense-hot/sparse-cold decomposition (:mod:`.hybrid`);
 * CSR plan: the CSR kernel (:mod:`.spmm_cuda`) through its autograd
@@ -16,19 +18,19 @@ from __future__ import annotations
 import torch
 
 from .adjacency import NormAdj
-from .hybrid import HybridPlan, spmm_hybrid
+from .hybrid import HybridPlan, segment_sum, spmm_hybrid
+from .restricted import RestrictedAdj, spmm_restricted
 from .spmm_cuda import spmm_plan
 
 
 def spmm_segment(adj: NormAdj, x: torch.Tensor) -> torch.Tensor:
     """Gather / ``index_add_`` aggregation."""
-    contrib = adj.w[:, None] * x[adj.src]
-    agg = torch.zeros(adj.n_nodes, x.shape[1], dtype=contrib.dtype, device=x.device)
-    agg = agg.index_add(0, adj.dst, contrib)
-    return agg + adj.self_w[:, None] * x
+    return segment_sum(adj.src, adj.dst, adj.w, x, adj.n_nodes) + adj.self_w[:, None] * x
 
 
-def spmm(adj: NormAdj, x: torch.Tensor) -> torch.Tensor:
+def spmm(adj, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(adj, RestrictedAdj):
+        return spmm_restricted(adj, x)
     if isinstance(adj.plan, HybridPlan):
         return spmm_hybrid(adj.plan, x) + adj.self_w[:, None] * x
     if adj.plan is not None:

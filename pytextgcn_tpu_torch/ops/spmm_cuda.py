@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -185,12 +186,15 @@ def spmm_csr_abs(csr: CsrPlan, x: torch.Tensor) -> torch.Tensor:
 
 class SpmmCsrKernel:
     """The compiled kernel: builds and loads it once, launches it, and
-    counts its launches in ``launches`` (one per SpMM call). ``flags`` and
-    ``tag`` make a timing build (``-D`` macros of ``csrc/spmm_csr.cu``),
-    never used for a result."""
+    counts its launches in ``launches`` (one per SpMM call) and, by
+    ``(n_rows, n_cols, H)`` of the launch, in ``shapes`` (full square plans,
+    the masked head's rectangular ones, the batched ensemble's widths).
+    ``flags`` and ``tag`` make a timing build (``-D`` macros of
+    ``csrc/spmm_csr.cu``), never used for a result."""
 
     def __init__(self, flags=(), tag: str = ""):
         self.launches = 0
+        self.shapes: Dict[Tuple[int, int, int], int] = {}
         p, i = ctypes.c_void_p, ctypes.c_int
         self.lib = CudaLibrary("spmm_csr.cu", "spmm_csr_launch",
                                [p, p, p, i, p, p, i, i, i, p, p, p, p, i, p],
@@ -233,6 +237,8 @@ class SpmmCsrKernel:
                 int(csr.split_row.shape[0]), stream,
             )
         self.launches += 1
+        shape = (csr.n_rows, csr.n_cols, h)
+        self.shapes[shape] = self.shapes.get(shape, 0) + 1
         return out
 
 

@@ -12,7 +12,10 @@ With ``use_pallas`` (the default here) the aggregation runs in the
 hand-written CSR kernel: 2 launches per forward pass and 2 more in the
 backward pass, so 4 per train step and 2 per evaluation. With
 ``hybrid_k`` it runs the hybrid decomposition instead, whose dual kernel
-and residual CSR kernel launch that many times each.
+and residual CSR kernel launch that many times each. With ``masked_head``
+the final layer aggregates into the train rows only during ``fit``
+(ops/restricted.py): 2 of the step's 4 launches then run on the
+restricted plans.
 """
 
 from __future__ import annotations
@@ -24,13 +27,26 @@ import numpy as np
 import torch
 
 from ..core.graph import TextGraph
-from ..models import export_params, load_jax_params
+from ..models import JumpingKnowledgeNetwork, export_params, load_jax_params
+from ..models.jk import JK_NO_MASKED_HEAD
 from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
+from ..ops.restricted import RestrictedAdj, build_restricted_adj
 from ..utils import resolve_device
 from .checkpoint import load_checkpoint, load_meta, save_checkpoint
 from .metrics import accuracy, macro_f1, masked_cross_entropy
 from .optim import resolve_optimizer
+
+
+def dropout_seed(seed: int) -> int:
+    """The seed of the dropout generator of a trainer seeded ``seed``: a fixed
+    mix of it, never ``seed`` itself. The drivers draw the parameters from
+    ``torch.Generator().manual_seed(seed)``; a CPU dropout generator seeded
+    with the same integer replays that stream, so the first mask would keep
+    exactly the lowest ``1 - rate`` of W1's initial entries, and the cascade's
+    macro-F1 drifted up 2.4 standard errors against the JAX package's on the
+    CPU (PERF.md). The JAX trainer splits its key for the same reason."""
+    return (seed * 0x9E3779B97F4A7C15 + 0x632BE59BD9B4E019) % 2**63
 
 
 class Trainer:
@@ -43,9 +59,11 @@ class Trainer:
         use_pallas: bool = True,
         pallas_dtype: str = "float32",
         device: Optional[Union[str, torch.device]] = None,
-        hybrid_k: Optional[int] = None,
+        hybrid_k: Optional[Union[int, str]] = None,
         hybrid_fused: Optional[bool] = None,
         hybrid_f32_mode: Optional[str] = None,
+        masked_head: bool = False,
+        plan_cache: Optional[str] = None,
     ):
         """``seed`` seeds the dropout generator (parameters come with the
         model). ``use_pallas``: aggregate through the CSR kernel (else the
@@ -53,7 +71,15 @@ class Trainer:
         input dtype, 'float32' or 'bfloat16' (parameters, optimizer and loss
         stay f32). ``device``: None means the GPU (raises without one).
         ``hybrid_k``/``hybrid_fused``/``hybrid_f32_mode``: the hybrid
-        decomposition (ops/hybrid.py), as ``NormAdj.from_graph`` takes them."""
+        decomposition (ops/hybrid.py), as ``NormAdj.from_graph`` takes them;
+        'auto' prices it at the model's hidden width. ``masked_head``: the
+        final layer aggregates into the train rows only during ``fit``
+        (exact for GCN; EGCN's dropout on the logits then draws a mask of
+        another shape, so its run is statistically equal, not step for
+        step; the JK network has no masked head). ``plan_cache``: a
+        directory of persisted plans (ops/plan_cache.py)."""
+        if masked_head and isinstance(model, JumpingKnowledgeNetwork):
+            raise ValueError(JK_NO_MASKED_HEAD)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.lr = lr
@@ -63,13 +89,17 @@ class Trainer:
         self.hybrid_k = hybrid_k
         self.hybrid_fused = hybrid_fused
         self.hybrid_f32_mode = hybrid_f32_mode
+        self.masked_head = masked_head
+        self.plan_cache = plan_cache
         self.optimizer = resolve_optimizer(optimizer, self.model.parameters(), lr)
         # one dropout stream per trainer; each fit continues it, so refits
         # draw fresh masks (the JAX trainer folds in a fit counter instead)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(dropout_seed(seed))
         self._adj: Optional[NormAdj] = None
         self._adj_key: Optional[tuple] = None
         self._feats: Optional[NodeFeatures] = None
+        self._adj_out: Optional[RestrictedAdj] = None
+        self._adj_out_key: Optional[tuple] = None
         self._restored = False
 
     # ------------------------------------------------------------ internals
@@ -86,6 +116,7 @@ class Trainer:
                 g, use_pallas=self.use_pallas, pallas_dtype=self.pallas_dtype,
                 device=self.device, hybrid_k=self.hybrid_k,
                 hybrid_fused=self.hybrid_fused, hybrid_f32_mode=self.hybrid_f32_mode,
+                h_hint=getattr(self.model, "n_hidden", 128), plan_cache=self.plan_cache,
             )
             self._adj_key = key
         self._feats = NodeFeatures.from_graph(g, device=self.device)
@@ -103,10 +134,32 @@ class Trainer:
         if other._adj is None or settings(self) != settings(other):
             return
         self._adj, self._adj_key = other._adj, other._adj_key
+        if other._adj_out is not None and self.masked_head and other.masked_head:
+            self._adj_out, self._adj_out_key = other._adj_out, other._adj_out_key
 
-    def _train_step(self, adj, feats, y, mask) -> torch.Tensor:
+    def _prepare_restricted(self, g: TextGraph) -> RestrictedAdj:
+        """The masked head's operator over the train rows, cached by
+        edge-array and train-mask identity (members of an ensemble share
+        edges but differ in masks). Built as the JAX trainer builds it: on
+        the CSR kernel when the full operator uses a kernel, with the
+        restricted cost model's K when the full operator is hybrid."""
+        key = (g.edge_src, g.edge_w, g.train_mask)
+        old = self._adj_out_key
+        if old is None or not all(a is b for a, b in zip(old, key)):
+            hybrid = self.hybrid_k is not None
+            self._adj_out = build_restricted_adj(
+                g, np.flatnonzero(np.asarray(g.train_mask)),
+                use_pallas=self.use_pallas or hybrid, hot_k="auto" if hybrid else None,
+                compute_dtype=self.pallas_dtype, h_hint=self.model.out_dim,
+                device=self.device,
+            )
+            self._adj_out_key = key
+        return self._adj_out
+
+    def _train_step(self, adj, feats, y, mask, adj_out=None) -> torch.Tensor:
         self.optimizer.zero_grad(set_to_none=True)
-        logits = self.model(adj, feats, train=True, generator=self.generator)
+        logits = self.model(adj, feats, train=True, generator=self.generator,
+                            adj_out=adj_out)
         loss = masked_cross_entropy(logits, y, mask)
         loss.backward()
         self.optimizer.step()
@@ -162,13 +215,20 @@ class Trainer:
         y = self._tensor(g.y, torch.int64)
         train_mask = self._tensor(g.train_mask)
         val_mask = self._tensor(g.val_mask)
+        adj_out, y_step, mask_step = None, y, train_mask
+        if self.masked_head:
+            # logits at the train rows only: labels sliced to them, every
+            # row counted, so the loss sees the full step's terms
+            adj_out = self._prepare_restricted(g)
+            y_step = y.index_select(0, adj_out.rows)
+            mask_step = torch.ones(adj_out.m, dtype=torch.bool, device=self.device)
 
         history: List[Dict[str, float]] = []
         f1_hist: List[float] = []  # val F1 at eval points (for 'val_f1' ES)
         width = len(str(epochs))
         t0 = time.time()
         for epoch in range(start_epoch, epochs):
-            loss = self._train_step(adj, feats, y, train_mask)
+            loss = self._train_step(adj, feats, y_step, mask_step, adj_out)
             # reading the loss synchronizes with the device: only where the
             # reference rule needs every epoch's loss, or at eval points
             is_eval = (epoch + 1) % eval_every == 0 or epoch == epochs - 1

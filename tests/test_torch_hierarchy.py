@@ -211,7 +211,8 @@ def test_protocol_driver_on_cpu(tmp_path):
     assert [r["seed"] for r in rows] == [42, 43]
     lines = out.read_text().splitlines()
     assert lines[0] == "seed,model,hierarchy,dataset,category,f1-macro,accuracy"
-    assert lines[1].startswith("42,GCN,per-level,synthetic-dbpedia,torch-cuda,")
+    # a run on the CPU is labelled so, not as a card's
+    assert lines[1].startswith("42,GCN,per-level,synthetic-dbpedia,torch-cpu,")
 
 
 @pytest.mark.parametrize("driver", [perlevel, perlabel, protocol])

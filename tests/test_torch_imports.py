@@ -33,10 +33,12 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
         assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
 
 
-# the EGCN/JK, checkpoint and hierarchy modules
+# the EGCN/JK, checkpoint and hierarchy modules, and the trainer's operator
+# options (the masked head's restricted operator, the plan cache)
 MODELS_AND_HIERARCHIES = ["models/jk.py", "train/checkpoint.py", "hierarchy/__init__.py",
            "hierarchy/perlevel.py", "hierarchy/perlabel.py", "experiments/perlevel.py",
-           "experiments/perlabel.py", "experiments/protocol.py"]
+           "experiments/perlabel.py", "experiments/protocol.py", "ops/restricted.py",
+           "ops/plan_cache.py"]
 
 
 def test_every_port_module_is_checked():

@@ -517,3 +517,95 @@ def test_hybrid_spmm_on_card_matches_segment(cuda, mode, kw, rtol, h):
         scale_grad = spmm_segment(dataclasses.replace(seg, w=seg.w.abs()), ct.abs())
     _assert_close(out.detach(), want.detach(), scale_out, rtol=rtol)
     _assert_close(x.grad, xs.grad, scale_grad, rtol=rtol)
+
+
+# --------------------------------------------- the trainer's operator options
+
+
+def _restricted_graph(seed=21, n_vocab=600, n_docs=900, e=30_000):
+    rng = np.random.default_rng(seed)
+    n = n_vocab + n_docs
+    train = np.zeros(n, bool)
+    train[n_vocab + rng.choice(n_docs, 600, replace=False)] = True
+    return TextGraph(
+        edge_src=rng.integers(0, n, e).astype(np.int32),
+        edge_dst=rng.integers(0, n, e).astype(np.int32),
+        edge_w=(rng.random(e) + 0.1).astype(np.float32),
+        y=rng.integers(0, 6, n).astype(np.int32), train_mask=train,
+        val_mask=np.zeros(n, bool), test_mask=np.zeros(n, bool),
+        n_vocab=n_vocab, n_docs=n_docs)
+
+
+@pytest.mark.parametrize("h", [43, 100, 4, 600])
+def test_kernel_on_the_masked_heads_plans_both_ways(cuda, h):
+    """The restricted forward plan [M, N] and its transpose [N, M], whose
+    rows are mostly empty: each against the plain version, empty rows exact
+    zeros."""
+    from pytextgcn_tpu_torch.ops.restricted import build_restricted_adj
+
+    g = _restricted_graph(e=2500)  # sparse: many inputs reach no train row
+    r = build_restricted_adj(g, np.flatnonzero(g.train_mask), use_pallas=True, device=cuda)
+    fwd, bwd = r.res.fwd, r.res.bwd
+    assert (fwd.n_rows, fwd.n_cols, bwd.n_rows, bwd.n_cols) == (600, 1500, 1500, 600)
+    for csr in (fwd, bwd):
+        x = torch.randn(csr.n_cols, h, device=cuda)
+        got = spmm_cuda.spmm_csr_kernel(csr, x)
+        torch.cuda.synchronize()
+        _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x), spmm_cuda.spmm_csr_abs(csr, x))
+        empty = csr.row_ptr[1:] == csr.row_ptr[:-1]
+        assert not got[empty].any()
+    assert int((bwd.row_ptr[1:] == bwd.row_ptr[:-1]).sum()) > 0
+
+
+@pytest.mark.parametrize("h", [600, 601, 42, 43])
+@pytest.mark.parametrize("hubs", [False, True], ids=["uniform", "hubs"])
+def test_kernel_at_the_ensemble_width_and_unaligned_widths(cuda, h, hubs):
+    """600: the batched ensemble's width (six members of 100, five column
+    blocks of 128); 601, 42, 43: rows that are not a multiple of 4 columns
+    (the wrapper pads them)."""
+    rng = np.random.default_rng(h + 7)
+    plan = _plan(rng, 3000, 40_000, cuda, hubs=hubs)
+    x = torch.randn(3000, h, device=cuda)
+    for csr in (plan.fwd, plan.bwd):
+        got = spmm_cuda.spmm_csr_kernel(csr, x)
+        torch.cuda.synchronize()
+        _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x), spmm_cuda.spmm_csr_abs(csr, x))
+
+
+def test_masked_head_training_on_card_matches_cpu(cuda):
+    from pytextgcn_tpu_torch.train import Trainer
+
+    g = _restricted_graph(seed=5)
+    hists, params = [], []
+    for dev in ("cpu", cuda):
+        model = GCN(g.in_dim, 6, n_hidden_gcn=100, dropout=0.0,
+                    generator=torch.Generator().manual_seed(3))
+        t = Trainer(model, lr=0.05, device=dev, masked_head=True)
+        before = spmm_cuda.spmm_csr_kernel.shapes.get((600, 1500, 6), 0)
+        hists.append([r["loss"] for r in t.fit(g, epochs=5, n_classes=6)])
+        params.append([p.detach().cpu() for p in t.model.parameters()])
+    # the card's run launched the restricted forward plan once a step
+    assert spmm_cuda.spmm_csr_kernel.shapes.get((600, 1500, 6), 0) == before + 5
+    np.testing.assert_allclose(hists[1], hists[0], rtol=1e-5, atol=1e-6)
+    for a, b in zip(params[1], params[0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_batched_ensemble_on_card_matches_cpu(cuda):
+    from pytextgcn_tpu_torch.hierarchy import train_per_label
+
+    g = _restricted_graph(seed=9)
+    rng = np.random.default_rng(1)
+    child = rng.integers(0, 6, g.n_docs)
+    parent = child // 2  # 3 members of 2 classes
+    runs = []
+    for dev in ("cpu", cuda):
+        gen = torch.Generator().manual_seed(4)
+        # dropout 0: the card's generator draws other numbers than the CPU's
+        factory = lambda i, o: GCN(i, o, n_hidden_gcn=100, dropout=0.0, generator=gen)
+        runs.append(train_per_label(g, child, parent, factory, epochs=5, seed=2, ep=True,
+                                    trainer_kwargs={"device": dev}))
+    assert spmm_cuda.spmm_csr_kernel.shapes.get((1500, 1500, 300), 0) >= 10
+    for tc, tg in zip(*(r["trainers"] for r in runs)):
+        for a, b in zip(tg.model.parameters(), tc.model.parameters()):
+            torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=2e-4, atol=2e-5)

@@ -298,9 +298,10 @@ def test_share_adjacency_only_with_equal_aggregation():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--model-model", "mlp"], ["--train-ep", "true"], ["--train-masked-head", "true"],
-    ["--train-hybrid-k", "auto"], ["--train-sharding", "halo"],
-    ["--train-batch-size", "64"], ["--train-plan-cache", "plans"],
+    ["--model-model", "mlp"], ["--train-ep", "true", "--model-model", "jk"],
+    ["--train-debug-checks", "true"], ["--train-optimizer", "optax_amsgrad"],
+    ["--train-sharding", "halo"], ["--train-batch-size", "64"],
+    ["--train-ep", "true", "--train-n-devices", "4"],
 ])
 def test_check_ported_still_refuses(flag):
     with pytest.raises(SystemExit, match="ROADMAP.md"):

@@ -75,7 +75,7 @@ def test_flat_experiment_writes_results_row(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--train-hybrid-k", "auto"], ["--train-masked-head", "true"],
+    ["--train-debug-checks", "true"], ["--train-sharding", "allgather"],
     ["--train-sharding", "halo"], ["--model-model", "mlp"], ["--dataset", "amazon"],
     ["--train-batch-size", "64"],
 ])
@@ -91,3 +91,23 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(GCN(10, 2, n_hidden_gcn=4))
     assert utils.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_dropout_stream_is_not_the_parameter_stream():
+    """The drivers draw a model's parameters from
+    ``torch.Generator().manual_seed(seed)`` and its trainer takes the same
+    seed: the dropout masks must not replay the initial weights' uniforms
+    (on the CPU a generator seeded with the same integer would: the first
+    mask kept exactly W1's lowest 30%)."""
+    seed, rate = 42, 0.7
+    model = GCN(500, 6, n_hidden_gcn=100, dropout=rate,
+                generator=torch.Generator().manual_seed(seed))
+    trainer = Trainer(model, seed=seed, device="cpu")
+    w = model.layers[0].w.detach()
+    limit = (6.0 / (500 + 100)) ** 0.5
+    lowest = (w + limit) / (2 * limit) < 1 - rate  # the init's uniforms below 0.3
+    mask = torch.rand(w.shape, generator=trainer.generator) < 1 - rate
+    agree = float((mask == lowest).float().mean())
+    # independent streams agree on 0.3^2 + 0.7^2 = 58% of the entries, one stream on all
+    assert abs(agree - 0.58) < 0.01, agree
+
