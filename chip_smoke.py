@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py                      # the full check, ~3 min
+    python3 chip_smoke.py                      # the full check, ~4 min
     python3 chip_smoke.py --profile OUT_DIR    # also torch.profiler tables of the
                                                # CSR and hybrid train steps
 
@@ -94,6 +94,22 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    steps; the CSR kernel at H = 600 against its plain version; and the
    plan cache (cold build, warm load, the loaded plan equal bit for bit,
    the flat experiment's losses on a cold and on a warm cache equal).
+12. the MLP baselines, the CSV loaders and the last trainer options: the
+   MLP experiment (TF-IDF of the synthetic-amazon split, MLP [256, 128])
+   flat, per-level and per-label, ``MODEL_EPOCHS`` epochs a model, its CSR
+   launches exact (by plan shape for flat: the train plan S, its transpose
+   for the first layer's gradient, the validation and test plans; losses
+   falling), each of those plans against the plain version with its times
+   and bound, the gradient through the autograd function, the MLP step's
+   time; the flat experiment on a CSV dataset written here (``--dataset
+   csv``); one ``--train-debug-checks`` epoch (on the kernel's path)
+   and a NaN edge weight, which must raise; a flat ``--train-optimizer
+   optax_amsgrad`` fit; the per-label experiment with ``--train-ep`` for
+   EGCN and for JK members (launches by width exact, the members' summed
+   loss falling), their members against sequential ones from the same
+   initialization at dropout 0 (losses, logits, parameters), their steps
+   against the sequential members' steps, and the batched LSTM against
+   one cuDNN call a member.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -127,6 +143,10 @@ K_SWEEP = (1024, 2048, 4096)
 F32_RTOL, ATOL = 1e-5, 1e-6  # f32 sums in another order
 BF16_RTOL = 2.0**-8  # x rounded to bf16 (relative error <= 2^-9) against f32 x
 LOGIT_RTOL = 1e-4  # logits two sums deep, relative to the largest logit
+# EGCN embedding entries whose SELU input comes this close to 0, SELU's
+# kink, are left out of the batched ensemble's parameter check against
+# sequential members (ep_against_sequential)
+KINK_MARGIN = 1e-5
 SPLIT2_RTOL = 3e-5  # the split2 class against f32 (tests/test_spmm_hybrid.py:73-79)
 
 
@@ -364,7 +384,7 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     n, e = g.n_nodes, g.n_edges
-    log(f"[10/11] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
+    log(f"[10/12] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
         "level or member):")
     _, (cat1, cat2), _, _ = common.load_corpus(cfg, levels=["Cat1", "Cat2"])
     if not np.array_equal(cat2, np.asarray(g.y)[g.n_vocab:]):
@@ -585,7 +605,7 @@ def operator_options(args, card, g, n_classes: int, hidden: int, adj, counters, 
     out, errs, rows_json = {}, [], []
     y = torch.as_tensor(g.y, dtype=torch.int64, device=dev)
     train_mask = torch.as_tensor(g.train_mask, device=dev)
-    log(f"[11/11] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
+    log(f"[11/12] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
 
     # ---- the masked head through the flat experiment
     mcfg = parse_config(base + ["--train-masked-head", "true"])
@@ -958,6 +978,436 @@ def operator_options(args, card, g, n_classes: int, hidden: int, adj, counters, 
     return out, errs, {"restricted": restricted_rows, "h600": h600}
 
 
+def ep_against_sequential(name: str, g, cat1, cat2, zcfg, epochs: int, dev):
+    """The batched per-label ensemble of ``zcfg``'s model (dropout 0) held
+    against its members trained one after another from the same
+    initialization: the losses, each member's logits on the graph
+    (LOGIT_RTOL of the largest) and every parameter within 2e-4 of the
+    parameter's largest magnitude. Two exceptions, both where the function
+    has a kink or a flat direction that rounding decides: the JK
+    attention's bias, whose gradient is analytically zero (the softmax over
+    the layers does not see a shift), so Adam's normalized steps move it
+    on rounding alone; and the EGCN embedding's entries whose SELU input
+    ``w + b`` came within KINK_MARGIN of 0 in the sequential run, where
+    SELU's derivative jumps from lambda * alpha to lambda (1.673x): when
+    the two runs' last bits put such an entry on opposite sides, their
+    gradients there differ by that factor and Adam carries it into
+    different steps. Returns (the largest error over the entries held, the
+    sequential run as ``train_per_label`` returns it, the entries left out
+    by parameter name)."""
+    import numpy as np
+    import torch
+
+    from pytextgcn_tpu_torch.config import make_model
+    from pytextgcn_tpu_torch.hierarchy import perlabel as hpl
+    from pytextgcn_tpu_torch.hierarchy import train_per_label
+    from pytextgcn_tpu_torch.train.trainer import Trainer
+
+    lr = zcfg.train.lr
+    factory = lambda: (lambda i, o, gen_=torch.Generator().manual_seed(44):
+                       make_model(zcfg.model, i, o, generator=gen_))
+    ep_run = train_per_label(g, cat2, cat1, factory(), ep=True, epochs=epochs, seed=44, lr=lr,
+                             trainer_kwargs={"device": dev})
+    # the sequential path of train_per_label, step by step, to follow the
+    # EGCN embedding's SELU inputs
+    members = hpl._member_label_arrays(g, cat2, cat1, int(np.max(cat1)) + 1)
+    make = factory()
+    trainers = [Trainer(make(g.in_dim, len(classes)), lr=lr, seed=44, optimizer="adam",
+                        device=dev) for classes, _, _ in members]
+    adj, feats = trainers[0].prepare(g)
+    for t in trainers[1:]:
+        t._adj, t._adj_key, t._feats = trainers[0]._adj, trainers[0]._adj_key, feats
+    problems, histories, excluded, held_err = [], [], {}, 0.0
+    for c, (t, te, (_, yn, nm)) in enumerate(zip(trainers, ep_run["trainers"], members)):
+        y = torch.as_tensor(yn, dtype=torch.int64, device=dev)
+        mask = torch.as_tensor(np.asarray(g.train_mask) & nm, device=dev)
+        embed = getattr(t.model, "embed", None)
+        near_kink = None if embed is None else torch.zeros_like(embed.w, dtype=torch.bool)
+        hist = []
+        for _ in range(epochs + 1):
+            if embed is not None:
+                near_kink |= (embed.w + embed.b).detach().abs() < KINK_MARGIN
+            if len(hist) < epochs:
+                hist.append({"loss": float(t._train_step(adj, feats, y, mask))})
+        histories.append(hist)
+        allclose(f"{name} EP member {c} losses vs sequential",
+                 torch.tensor([r["loss"] for r in ep_run["histories"][c]]),
+                 torch.tensor([r["loss"] for r in hist]), 2e-4, 2e-5)
+        with torch.no_grad():
+            le, ls = te.predict_logits(g), t.predict_logits(g)
+        allclose(f"{name} EP member {c} logits vs sequential", le, ls, 0.0,
+                 LOGIT_RTOL * float(ls.abs().max()))
+        for (pn, ps), pe in zip(t.model.named_parameters(), te.model.parameters()):
+            atol = 2e-4 * float(ps.detach().abs().max())
+            err = (pe.detach() - ps.detach()).abs()
+            out_mask = (torch.ones_like(err, dtype=torch.bool) if pn == "att.b" else
+                        near_kink if pn == "embed.w" else torch.zeros_like(err, dtype=torch.bool))
+            n_out = int(out_mask.sum())
+            held = float(err[~out_mask].max()) if n_out < err.numel() else 0.0
+            apart = float(err[out_mask].max()) if n_out else 0.0
+            held_err = max(held_err, held)
+            excluded[pn] = excluded.get(pn, 0) + n_out
+            ok = held <= atol
+            why = ("a zero gradient" if pn == "att.b" else
+                   f"SELU input within {KINK_MARGIN:g} of its kink")
+            left = f"; {n_out} left out ({why}) reach {apart:.3e}" if n_out else ""
+            log(f"  check {name} EP member {c} {pn} vs sequential: max_abs_err={held:.3e} "
+                f"(atol {atol:.3e}) over {err.numel() - n_out} of {err.numel()} "
+                f"entries{left} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                problems.append(f"{name} EP member {c} {pn}: {held:.3e} over atol {atol:.3e}")
+        del near_kink
+    if problems:
+        fail("; ".join(problems))
+    return held_err, {"trainers": trainers, "histories": histories}, excluded
+
+
+def mlp_and_last_options(args, card, g, n_classes: int, hidden: int, counters, gen, dev,
+                         cat1, cat2):
+    """Phase 12: the TF-IDF + MLP baselines on the CSR kernel at the
+    synthetic-amazon scale (the MLP experiment's flat run with exact launch
+    counts by plan shape, every plan's launch against the plain version and
+    its times, the step's time; its per-level and per-label runs), a CSV
+    dataset written here through ``--dataset csv``, one ``--train-debug-checks``
+    epoch (clean, then a NaN edge weight, which must raise), an
+    ``--train-optimizer optax_amsgrad`` fit, and the batched per-label
+    ensemble of EGCN and of JK members through the per-label experiment and
+    against sequential members (its batched LSTM timed against the members'
+    cuDNN calls). Returns (summary, kernel errors, MLP plan rows)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pytextgcn_tpu_torch.baselines import mlp_pipeline
+    from pytextgcn_tpu_torch.config import check_ported, parse_config
+    from pytextgcn_tpu_torch.data.synthetic import protocol_corpus
+    from pytextgcn_tpu_torch.experiments import flat, perlabel
+    from pytextgcn_tpu_torch.experiments import mlp as mlp_driver
+    from pytextgcn_tpu_torch.hierarchy import perlabel as hpl
+    from pytextgcn_tpu_torch.models import MLP, SparseMatrix
+    from pytextgcn_tpu_torch.models.layers import stacked_bilstm
+    from pytextgcn_tpu_torch.ops import spmm_cuda
+    from pytextgcn_tpu_torch.train.optim import resolve_optimizer
+    from pytextgcn_tpu_torch.train.trainer import dropout_seed
+
+    kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
+                          spmm_cuda.spmm_csr_abs)
+    epochs = MODEL_EPOCHS
+    n, e = g.n_nodes, g.n_edges
+    out, errs = {}, []
+    log(f"[12/12] the MLP baselines, the CSV loaders and the last trainer options "
+        f"({epochs} epochs a path):")
+
+    # ---- the MLP experiment at the synthetic-amazon scale
+    mcfg = parse_config(["--dataset", "synthetic-amazon", "--n-docs", str(args.n_docs),
+                         "--train-epochs", str(epochs), "--train-verbose", "0"])
+    check_ported(mcfg, graph=False)
+    t0 = time.perf_counter()
+    splits, n_levels = mlp_driver.build_splits(mcfg, mlp_driver.default_levels(mcfg.dataset))
+    splits_s = time.perf_counter() - t0
+    kw = mlp_driver.train_kwargs(mcfg, set())
+    b, v = splits.x_train.shape
+    b_va, b_te = splits.x_val.shape[0], splits.x_test.shape[0]
+    h1 = kw["hidden"][0]
+    log(f"  TF-IDF splits in {splits_s:.1f}s: train [{b}, {v}] ({splits.x_train.nnz} nonzeros), "
+        f"validation [{b_va}, {v}], test [{b_te}, {v}]; MLP {kw['hidden']}, lr {kw['lr']}, "
+        f"dropout {kw['dropout']}")
+    runs = {}
+    for hierarchy in mlp_driver.HIERARCHIES:
+        for reset, _ in counters.values():
+            reset()
+        t0 = time.perf_counter()
+        res = mlp_driver.run(mcfg, splits, n_levels, hierarchy, kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {name: read() for name, (_, read) in counters.items()}
+        runs[hierarchy] = (res, secs, counts)
+    res, secs, counts = runs["flat"]
+    # per level model: epochs x (train S, its transpose, validation) + 1 test
+    want = {(b, v, h1): n_levels * epochs, (v, b, h1): n_levels * epochs,
+            (b_va, v, h1): n_levels * epochs, (b_te, v, h1): n_levels}
+    losses = [[l for l, _ in r["history"]] for r in res]
+    log(f"  MLP flat (both levels) in {secs:.1f}s: CSR launches by (rows, cols, H) "
+        f"{counts['csr_shapes']} (expected {want}); losses {losses}; test acc "
+        f"{[round(r['accuracy'], 4) for r in res]}, macro-F1 "
+        f"{[round(r['f1_macro'], 4) for r in res]}")
+    if counts["csr_shapes"] != want or counts["dual"]:
+        fail(f"MLP flat: launches {counts}, expected {want}")
+    for ls in losses:
+        if len(ls) != epochs or not np.isfinite(ls).all() or not ls[-1] < ls[0]:
+            fail(f"MLP flat: losses {ls}")
+    for hierarchy in ("per-level", "per-label"):
+        hres, hsecs, hcounts = runs[hierarchy]
+        n_models = 2 if hierarchy == "per-level" else 1 + len(np.unique(splits.y_train[0]))
+        routed = 1 if hierarchy == "per-level" else len(np.unique(hres[0]["pred"]))
+        hwant = 3 * epochs * n_models + 1 + routed
+        log(f"  MLP {hierarchy} in {hsecs:.1f}s: {n_models} models, CSR launches "
+            f"{hcounts['csr']} (expected {hwant}); test acc "
+            f"{[round(r['accuracy'], 4) for r in hres]}, macro-F1 "
+            f"{[round(r['f1_macro'], 4) for r in hres]}")
+        if hcounts["csr"] != hwant or hcounts["dual"]:
+            fail(f"MLP {hierarchy}: launches {hcounts}, expected {hwant}")
+        if not all(0.0 <= r["accuracy"] <= 1.0 and np.isfinite(r["f1_macro"]) for r in hres):
+            fail(f"MLP {hierarchy}: metrics {[(r['accuracy'], r['f1_macro']) for r in hres]}")
+    out["mlp"] = {"splits_s": splits_s, "train_shape": [b, v], "nnz": splits.x_train.nnz,
+                  "flat": {"seconds": secs, "launches": {str(k): c for k, c in
+                                                         counts["csr_shapes"].items()},
+                           "losses": losses},
+                  **{h: {"seconds": runs[h][1], "launches": runs[h][2]["csr"]}
+                     for h in ("per-level", "per-label")}}
+    del runs, res
+
+    # every plan of the MLP path against the plain version, and its times
+    plan_rows = []
+    for name, x_csr in (("train", splits.x_train), ("validation", splits.x_val),
+                        ("test", splits.x_test)):
+        xs = SparseMatrix.from_scipy(x_csr, use_pallas=True, device=dev)
+        plans = (("fwd", xs.plan.fwd), ("bwd", xs.plan.bwd)) if name == "train" else (
+            ("fwd", xs.plan.fwd),)
+        for pname, csr in plans:
+            x = torch.randn(csr.n_cols, h1, generator=gen, device=dev)
+            got = kernel(csr, x)
+            err = compare(f"MLP {name} {pname} [{csr.n_rows}, {csr.n_cols}] H={h1}", got,
+                          plain(csr, x), mag(csr, x), F32_RTOL)
+            errs.append(err)
+            empty = csr.row_ptr[1:] == csr.row_ptr[:-1]
+            if got[empty].any():
+                fail(f"MLP {name} {pname}: rows with no entries are not exact zeros")
+            lib = sparse_csr(csr)
+            _, _, bound, bound_by = spmm_work(csr, h1, 4)
+            row = {"plan": f"{name} {pname}", "n_rows": csr.n_rows, "n_cols": csr.n_cols,
+                   "h": h1, "nnz": csr.n_edges, "empty_rows": int(empty.sum()),
+                   "launches": want[(csr.n_rows, csr.n_cols, h1)], "max_abs_err": err,
+                   "ms": time_ms(lambda: kernel(csr, x), 50),
+                   "plain_ms": time_ms(lambda: plain(csr, x), 5, warmup=1),
+                   "library_ms": time_ms(lambda: torch.sparse.mm(lib, x), 20),
+                   "bound_ms": bound, "bound_by": bound_by}
+            plan_rows.append(row)
+            log(f"  spmm_csr MLP {row['plan']} ({row['empty_rows']} of {csr.n_rows} rows "
+                f"empty): kernel {row['ms']:.4f} ms, bound {bound:.4f} ms by {bound_by}, plain "
+                f"{row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms")
+    # the gradient through the autograd function is the transpose launch
+    xs = SparseMatrix.from_scipy(splits.x_train, use_pallas=True, device=dev)
+    w = torch.randn(v, h1, generator=gen, device=dev, requires_grad=True)
+    ct = torch.randn(b, h1, generator=gen, device=dev)
+    (xs.matmul(w) * ct).sum().backward()
+    errs.append(compare(f"MLP dW = S^T g [{v}, {h1}]", w.grad, plain(xs.plan.bwd, ct),
+                        mag(xs.plan.bwd, ct), F32_RTOL))
+    # the train step: forward, CE, backward, Adam at the full width
+    model = MLP(v, int(splits.y_train[1].max()) + 1, list(kw["hidden"]), dropout=kw["dropout"],
+                generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = resolve_optimizer("adam", model.parameters(), kw["lr"])
+    y = torch.as_tensor(np.asarray(splits.y_train[1], np.int64), device=dev)
+    mgen = torch.Generator(device=dev).manual_seed(dropout_seed(0))
+    step = lambda: mlp_pipeline.mlp_train_step(model, opt, xs, y, mgen)
+    step_ms = host_step_ms(step)
+    out["mlp"]["step_ms"] = step_ms
+    timing = ""
+    if args.profile:
+        out["mlp"]["device_busy_ms"] = profile_step(args.profile, card,
+                                                    f"MLP step, S [{b}, {v}], H={h1}", "mlp",
+                                                    step, step_ms)
+        timing = f", device busy {out['mlp']['device_busy_ms']:.3f} ms"
+    log(f"  MLP train step {step_ms:.3f} ms (host clock, 20 steps){timing}")
+    del xs, w, ct, model, opt, splits
+
+    # ---- a CSV dataset written here, through --dataset csv
+    docs, levels, n_train, _ = protocol_corpus("amazon", n_docs=3000)
+    with tempfile.TemporaryDirectory() as tmp:
+        import csv as csv_mod
+
+        for name, lo, hi in (("train.csv", 0, n_train), ("test.csv", n_train, len(docs))):
+            with open(os.path.join(tmp, name), "w", newline="") as f:
+                wr = csv_mod.writer(f)
+                wr.writerow(["Text", "Cat1", "Cat2"])
+                wr.writerows([docs[i], f"top{levels[0][i]}", int(levels[1][i]) * 5]
+                             for i in range(lo, hi))
+        ccfg = parse_config(["--dataset", "csv", "--data-dir", tmp, "--labels", "Cat2",
+                             "--train-epochs", str(epochs), "--train-eval-every", "1",
+                             "--train-verbose", "0"])
+        check_ported(ccfg)
+        gc, nc = flat.build_graph(ccfg)
+        cres, csecs, ccounts = run_path(flat, ccfg, gc, nc, counters)
+    c_steps = len(cres["history"])
+    c_expected = 4 * c_steps + 2 * (c_steps + 1)
+    closses = [r["loss"] for r in cres["history"]]
+    log(f"  flat GCN on a CSV dataset ({len(docs)} docs, {nc} classes, N={gc.n_nodes}) in "
+        f"{csecs:.1f}s: CSR launches {ccounts['csr']} (expected {c_expected}); loss "
+        f"{closses[0]:.4f} -> {closses[-1]:.4f}")
+    if ccounts["csr"] != c_expected or not closses[-1] < closses[0]:
+        fail(f"--dataset csv: launches {ccounts}, losses {closses}")
+    out["csv"] = {"docs": len(docs), "classes": nc, "seconds": csecs, "launches": ccounts["csr"]}
+
+    # ---- --train-debug-checks: clean, then a NaN edge weight
+    dcfg = parse_config(["--train-epochs", "1", "--train-verbose", "0",
+                         "--train-debug-checks", "true"])
+    check_ported(dcfg)
+    dres, dsecs, dcounts = run_path(flat, dcfg, gc, nc, counters)
+    bad_w = np.asarray(gc.edge_w).copy()
+    bad_w[0] = np.nan
+    raised = None
+    try:
+        flat.run(dcfg, dataclasses.replace(gc, edge_w=bad_w), nc)
+    except FloatingPointError as exc:
+        raised = str(exc)
+    d_steps = len(dres["history"])
+    d_expected = 4 * d_steps + 2 * (d_steps + 1)
+    log(f"  --train-debug-checks: a clean epoch in {dsecs:.1f}s (loss "
+        f"{dres['history'][0]['loss']:.4f}; CSR launches {dcounts['csr']}, expected "
+        f"{d_expected}: the checks run on the kernel's path); a NaN edge weight raised: "
+        f"{raised!r}")
+    if dcounts["csr"] != d_expected or not np.isfinite(dres["history"][0]["loss"]):
+        fail(f"debug checks, clean graph: {dcounts}, {dres['history']}")
+    if raised is None or "nan" not in raised:
+        fail("debug checks: a NaN edge weight did not raise")
+    out["debug_checks"] = {"seconds": dsecs, "launches": dcounts["csr"], "raised": raised}
+
+    # ---- --train-optimizer optax_amsgrad on the full graph
+    ocfg = parse_config(["--dataset", "synthetic-amazon", "--n-docs", str(args.n_docs),
+                         "--model-n-hidden", str(hidden), "--model-dropout", "0.7",
+                         "--train-lr", "0.05", "--train-epochs", str(epochs),
+                         "--train-eval-every", "1", "--train-verbose", "0",
+                         "--train-optimizer", "optax_amsgrad"])
+    check_ported(ocfg)
+    ores, osecs, ocounts = run_path(flat, ocfg, g, n_classes, counters)
+    o_steps = len(ores["history"])
+    o_expected = 4 * o_steps + 2 * (o_steps + 1)
+    olosses = [r["loss"] for r in ores["history"]]
+    opt_name = type(ores["trainer"].optimizer).__name__
+    log(f"  flat GCN --train-optimizer optax_amsgrad ({opt_name}) in {osecs:.1f}s: CSR "
+        f"launches {ocounts['csr']} (expected {o_expected}); loss {olosses[0]:.4f} -> "
+        f"{olosses[-1]:.4f}")
+    if (ocounts["csr"] != o_expected or opt_name != "OptaxAmsgrad"
+            or not np.isfinite(olosses).all() or not olosses[-1] < olosses[0]):
+        fail(f"optax_amsgrad: launches {ocounts}, optimizer {opt_name}, losses {olosses}")
+    out["optax_amsgrad"] = {"seconds": osecs, "launches": ocounts["csr"], "losses": olosses}
+    del ores
+
+    # ---- the batched ensemble of EGCN and of JK members
+    base = ["--dataset", "synthetic-amazon", "--n-docs", str(args.n_docs),
+            "--model-n-hidden", str(hidden), "--model-dropout", "0.7", "--train-lr", "0.05",
+            "--train-epochs", str(epochs), "--train-verbose", "0"]
+    out["ep"] = {}
+    for name in ("egcn", "jk"):
+        # EGCN at lr 0.005, as in phase 10: at 0.05 it first climbs
+        lr = ["--train-lr", "0.005"] if name == "egcn" else []
+        with tempfile.TemporaryDirectory() as tmp:
+            ecfg = parse_config(base + lr + ["--model-model", name, "--train-ep", "true",
+                                        "--result-file", os.path.join(tmp, "rows.csv")])
+            check_ported(ecfg)
+            for reset, _ in counters.values():
+                reset()
+            t0 = time.perf_counter()
+            eres = perlabel.run(ecfg, g, cat1, cat2)
+            torch.cuda.synchronize()
+            esecs = time.perf_counter() - t0
+            ecounts = {k: read() for k, (_, read) in counters.items()}
+        sizes = [len(eres["mapping"][c]) for c in range(len(eres["trainers"]))]
+        m_count, c_max = len(sizes), max(sizes)
+        width = m_count * hidden
+        e_steps = len(eres["histories"][0])
+        want = ({(n, n, width): 2 * e_steps + 1, (n, n, m_count * c_max): 2 * e_steps + 1}
+                if name == "egcn" else {(n, n, width): 4 * e_steps + 2})
+        total = np.sum([[r["loss"] for r in h] for h in eres["histories"]], axis=0)
+        log(f"  per-label --model-model {name} --train-ep in {esecs:.1f}s: {m_count} members "
+            f"of {sizes} classes; CSR launches by (rows, cols, H) {ecounts['csr_shapes']} "
+            f"(expected {want}); summed member loss {total[0]:.4f} -> {total[-1]:.4f}; test "
+            f"acc {eres['accuracy']:.4f}, macro-F1 {eres['f1_macro']:.4f}")
+        if ecounts["csr_shapes"] != want or ecounts["dual"]:
+            fail(f"per-label {name} --train-ep: launches {ecounts}, expected {want}")
+        # every member's losses finite (exactly 0 for a one-class member), the
+        # members' summed loss falling (a member's own may bounce in 5 epochs
+        # at dropout 0.7)
+        member_losses = np.array([[r["loss"] for r in h] for h in eres["histories"]])
+        for c, ls in enumerate(member_losses):
+            if len(ls) != epochs or not np.isfinite(ls).all() or (sizes[c] == 1 and ls.any()):
+                fail(f"per-label {name} --train-ep member {c}: losses {ls.tolist()}")
+        if not total[-1] < total[0]:
+            fail(f"per-label {name} --train-ep: the members' summed loss {total.tolist()} "
+                 "did not fall")
+        del eres
+        # the stacked members against sequential ones from the same
+        # initialization at dropout 0 (ep_against_sequential), at lr 0.005
+        zcfg = parse_config(base + ["--train-lr", "0.005", "--model-model", name,
+                                    "--model-dropout", "0"])
+        ep_err, seq_run, excluded = ep_against_sequential(name, g, cat1, cat2, zcfg, epochs,
+                                                          dev)
+        torch.cuda.empty_cache()
+        # step times: one batched step against the sequential members' steps
+        models = [t.model for t in seq_run["trainers"]]
+        params = hpl._stack_members(models, sizes, dev)
+        opt = resolve_optimizer("adam", params, 0.05)
+        members = hpl._member_label_arrays(g, cat2, cat1, m_count)
+        ym = torch.as_tensor(np.stack([yn for _, yn, _ in members], 1), dtype=torch.int64,
+                             device=dev)
+        mm = torch.as_tensor(np.stack([np.asarray(g.train_mask) & nm for _, _, nm in members],
+                                      1), device=dev).float()
+        gens = [torch.Generator(device=dev).manual_seed(44) for _ in models]
+        tadj, tfeats = seq_run["trainers"][0]._adj, seq_run["trainers"][0]._feats
+        ep_step = lambda: hpl.ep_train_step(params, opt, models[0], tadj, tfeats, ym, mm, gens,
+                                            sizes)
+        ep_ms = host_step_ms(ep_step, reps=5, warmup=1)
+        seq_ms = [host_step_ms(lambda t=t, yn=yn, nm=nm: t._train_step(
+            tadj, tfeats, torch.as_tensor(yn, dtype=torch.int64, device=dev),
+            torch.as_tensor(np.asarray(g.train_mask) & nm, device=dev)), reps=5, warmup=1)
+            for t, (_, yn, nm) in zip(seq_run["trainers"], members)]
+        entry = {"seconds": esecs, "sizes": sizes, "step_ms": ep_ms,
+                 "sequential_step_ms": seq_ms, "max_abs_err_vs_sequential": ep_err,
+                 "entries_at_rounding_level": excluded,
+                 "launches": {str(k): c for k, c in ecounts["csr_shapes"].items()}}
+        timing = ""
+        if args.profile:
+            entry["device_busy_ms"] = profile_step(args.profile, card,
+                                                   f"per-label {name} EP step, N={n}",
+                                                   f"perlabel_ep_{name}", ep_step, ep_ms)
+            timing = f", device busy {entry['device_busy_ms']:.3f} ms"
+        log(f"  {name} EP train step {ep_ms:.3f} ms{timing} against {sum(seq_ms):.3f} ms for "
+            f"the {m_count} sequential members' steps ({[round(s, 3) for s in seq_ms]}; host "
+            f"clock)")
+        if name == "jk":
+            # the batched LSTM against one cuDNN call a member, forward and
+            # backward, at the members' shapes
+            lstms = [t.model.lstm for t in seq_run["trainers"]]
+            xs_l = torch.randn(m_count, n, 2, hidden, generator=gen, device=dev,
+                               requires_grad=True)
+            names = ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0")
+            stk = {sfx: [torch.stack([getattr(l, nm + sfx) for l in lstms]).detach()
+                         .requires_grad_(True) for nm in names] for sfx in ("", "_reverse")}
+            got = stacked_bilstm(xs_l, stk[""], stk["_reverse"]).detach()
+            with torch.no_grad():
+                want_l = torch.stack([l(xs_l[i])[0] for i, l in enumerate(lstms)])
+                # the oracle: each member's torch.nn.LSTM in float64
+                want64 = torch.stack([copy.deepcopy(l).double()(xs_l[i].double())[0]
+                                      for i, l in enumerate(lstms)])
+            top = float(want64.abs().max())
+            err_b = float((got.double() - want64).abs().max())
+            err_c = float((want_l.double() - want64).abs().max())
+            log(f"  stacked_bilstm against each member's float64 torch.nn.LSTM: max_abs_err "
+                f"{err_b:.3e}; the members' float32 cuDNN calls against it: {err_c:.3e}; "
+                f"stacked_bilstm against those: {float((got - want_l).abs().max()):.3e} "
+                f"(largest output {top:.4f})")
+            allclose("stacked_bilstm vs float64 torch.nn.LSTM, 1e-5 of the largest output",
+                     got.double(), want64, 0.0, 1e-5 * top)
+            ct_l = torch.randn_like(got)
+            batched_ms = time_ms(lambda: torch.autograd.grad(
+                (stacked_bilstm(xs_l, stk[""], stk["_reverse"]) * ct_l).sum(),
+                [xs_l] + stk[""] + stk["_reverse"]), 5, warmup=1)
+            cudnn_ms = time_ms(lambda: [torch.autograd.grad(
+                (l(xs_l[i])[0] * ct_l[i]).sum(), [xs_l] + list(l.parameters()))
+                for i, l in enumerate(lstms)], 5, warmup=1)
+            entry.update(lstm_batched_ms=batched_ms, lstm_cudnn_ms=cudnn_ms)
+            log(f"  JK LSTM forward + backward, {m_count} members at [{n}, 2, {hidden}]: "
+                f"batched {batched_ms:.3f} ms, {m_count} cuDNN calls {cudnn_ms:.3f} ms")
+            del xs_l, stk, got, want_l, ct_l
+        out["ep"][name] = entry
+        del seq_run, params, opt, models
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return out, errs, plan_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=50_000)
@@ -1021,7 +1471,7 @@ def main(argv=None) -> int:
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/11] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
+    log(f"[1/12] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
         f"kernel, four of the dual kernel) and the native library in "
         f"{time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
@@ -1042,7 +1492,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     g, n_classes = flat.build_graph(cfg)
     n, e = g.n_nodes, g.n_edges
-    log(f"[2/11] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
+    log(f"[2/12] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
         f"(vocab {g.n_vocab}, docs {g.n_docs}), {n_classes} classes")
     widths = (hidden, n_classes)
 
@@ -1050,7 +1500,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     adj = NormAdj.from_graph(g, use_pallas=True, device=dev)
     plan = adj.plan
-    log(f"[3/11] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
+    log(f"[3/12] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
         f"segments, {plan.fwd.n_partials} partial rows (fwd); checks:")
     gen = torch.Generator(device=dev).manual_seed(0)
     f32_errs, bf16_errs = [], []
@@ -1111,7 +1561,7 @@ def main(argv=None) -> int:
     evals = sum("val_f1" in rec for rec in hist) + 1  # + evaluate()
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
-    log(f"[4/11] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
+    log(f"[4/12] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
         f"passes, kernel launches {launches} (expected {expected}); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; test acc {res['accuracy']:.4f}, "
         f"macro-F1 {res['f1_macro']:.4f}; peak memory {peak_gb:.2f} GB")
@@ -1166,14 +1616,14 @@ def main(argv=None) -> int:
     plan_s = time.perf_counter() - t0
     k = hplan.k
     d_bytes = 2 * hplan.d_full.numel() * hplan.d_full.element_size()
-    log(f"[5/11] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
+    log(f"[5/12] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
         f"pair of {d_bytes / 1e6:.1f} MB), {hplan.n_resid} residual edges "
         f"({hplan.n_resid / e:.1%} of E) on the CSR kernel")
     if hplan.d_lo is None or tuple(hplan.d_full.shape) != (n, k) or k != HOT_K:
         fail(f"hybrid plan: K={k}, D {tuple(hplan.d_full.shape)}, split {hplan.d_lo is not None}")
 
     # ------------------------------------------------------------ 6. dual kernel
-    log("[6/11] the dual kernel against its plain version (tolerance relative to "
+    log("[6/12] the dual kernel against its plain version (tolerance relative to "
         "|D| @ |xh| and |D|^T @ |x|):")
     pair = (hplan.d_full, hplan.d_lo)
     d32 = pair[0].float() + pair[1].float()  # the f32 D of the f32 variant
@@ -1245,7 +1695,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 7. hybrid SpMM
-    log(f"[7/11] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
+    log(f"[7/12] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
         f"of |A_hat| @ |x|):")
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev, requires_grad=True)
@@ -1283,7 +1733,7 @@ def main(argv=None) -> int:
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
     path_launches = {"split": hcounts["dual"].get("split", 0)}
-    log(f"[8/11] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
+    log(f"[8/12] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
         f"{evals} forward-only passes; dual kernel launches {hcounts['dual']}, CSR kernel "
         f"launches {hcounts['csr']} (expected {expected} each); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; test acc {hres['accuracy']:.4f}, macro-F1 {hres['f1_macro']:.4f}; "
@@ -1332,7 +1782,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 9. times
-    log(f"[9/11] times on {card} (CUDA events, warm, per launch):")
+    log(f"[9/12] times on {card} (CUDA events, warm, per launch):")
     by_width = []
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev)
@@ -1515,6 +1965,11 @@ def main(argv=None) -> int:
         csr_ms_by_width)
     f32_errs += option_errs
 
+    # ------------------------------------------------------------ 12. MLP, loaders, options
+    last, last_errs, mlp_rows = mlp_and_last_options(args, card, g, n_classes, hidden,
+                                                     counters, gen, dev, cat1, cat2)
+    f32_errs += last_errs
+
     def dual_entry(key, replaces, path):
         rows = dual_rows[key]
         avg = lambda name: sum(r[name] for r in rows) / len(rows)
@@ -1564,6 +2019,8 @@ def main(argv=None) -> int:
         "restricted_plans": option_rows["restricted"],
         "ensemble_width": option_rows["h600"],
         "operator_options": options,
+        "mlp_plans": mlp_rows,
+        "mlp_and_last_options": last,
     },
         {**dual_entry("split", "pytextgcn_tpu/ops/fused_dual.py:185",
                       f"flat.run --train-hybrid-k {HOT_K} (f32 split2, the default), "

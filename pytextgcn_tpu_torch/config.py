@@ -41,7 +41,7 @@ class GraphConfig:
 
 @dataclasses.dataclass
 class ModelConfig:
-    model: str = "gcn"  # gcn | egcn | jk (mlp is not ported yet)
+    model: str = "gcn"  # gcn | egcn | jk | mlp (the MLP runs through experiments/mlp.py)
     n_hidden: int = 100
     n_gcn: int = 2
     dropout: float = 0.7
@@ -72,8 +72,11 @@ class TrainConfig:
     pallas_dtype: str = "float32"
     eval_every: int = 1
     batch_size: int = 0  # >0 (mini-batching) is not ported yet
-    debug_checks: bool = False  # not ported yet
-    # 'default' = torch Adam(amsgrad=True); or 'adam' | 'torch_amsgrad'
+    # finite checks after every step (loss, gradients, parameters) on the
+    # on the trainer's own path (kernel, hybrid or masked head)
+    debug_checks: bool = False
+    # 'default' = torch Adam(amsgrad=True); or 'adam' | 'torch_amsgrad' |
+    # 'optax_amsgrad' (optax's AMSGrad variant, train/optim.py)
     optimizer: str = "default"
     plan_cache: str = ""  # directory of persisted plans (ops/plan_cache.py)
     # XLA compile cache of the JAX experiment scripts; the port compiles only its
@@ -90,12 +93,13 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class ExperimentConfig:
-    # synthetic | synthetic-amazon | synthetic-dbpedia (the CSV datasets
-    # amazon | dbpedia | csv are not ported yet)
+    # synthetic | amazon | dbpedia | synthetic-amazon | synthetic-dbpedia |
+    # csv (data_dir holds train.csv/test.csv[/val.csv] with a text column
+    # and any label columns, data/loaders.py)
     dataset: str = "synthetic"
     data_dir: Optional[str] = None
-    labels: str = "Cat2"
-    text_col: Optional[str] = None
+    labels: str = "Cat2"  # amazon: Cat1/Cat2; dbpedia: l1/l2/l3; csv: any column
+    text_col: Optional[str] = None  # csv: the text column (auto-detected if unset)
     # synthetic-amazon/-dbpedia corpus size (0 = protocol default:
     # 50k/60k docs, the reference datasets' scales)
     n_docs: int = 0
@@ -164,7 +168,8 @@ def parse_config(argv=None, cfg: Optional[ExperimentConfig] = None) -> Experimen
     pull(cfg.model, "model_")
     pull(cfg.train, "train_")
     # argparse 'None' strings back to None
-    for obj, name in ((cfg, "data_dir"), (cfg, "result_file"), (cfg, "save_model"),
+    for obj, name in ((cfg, "data_dir"), (cfg, "text_col"), (cfg, "result_file"),
+                      (cfg, "save_model"),
                       (cfg, "load_graph"), (cfg, "device"), (cfg.train, "early_stopping"),
                       (cfg.train, "compile_cache"),
                       (cfg.graph, "max_length"), (cfg.graph, "save_path")):
@@ -225,19 +230,27 @@ def hybrid_f32_mode_arg(cfg: TrainConfig):
     )
 
 
-def check_ported(cfg: ExperimentConfig) -> None:
+DATASETS = ("synthetic", "amazon", "dbpedia", "synthetic-amazon", "synthetic-dbpedia", "csv")
+
+
+def check_ported(cfg: ExperimentConfig, graph: bool = True) -> None:
     """Stop with a message naming ROADMAP.md when the config asks for
-    anything this port does not have yet."""
+    anything this port does not have yet. ``graph``: the config trains a
+    graph model (experiments/flat.py, perlevel.py and perlabel.py, which
+    refuse ``--model-model mlp``); experiments/mlp.py passes False."""
     t = cfg.train
+    if graph and cfg.model.model == "mlp":
+        raise SystemExit("--model-model mlp: the TF-IDF + MLP baseline takes no graph; "
+                         "run it through experiments/mlp.py")
     if t.masked_head and cfg.model.model == "jk":
         # the JAX package's JK network takes no masked head either
         raise SystemExit("--train-masked-head: the JK network has no masked head "
                          "(its LSTM reads every layer's full output)")
     missing = []
-    if cfg.dataset not in ("synthetic", "synthetic-amazon", "synthetic-dbpedia"):
-        missing.append(f"--dataset {cfg.dataset}")
-    if cfg.model.model not in ("gcn", "egcn", "jk"):
-        missing.append(f"--model-model {cfg.model.model}")
+    if cfg.dataset not in DATASETS:
+        raise SystemExit(f"--dataset must be one of {', '.join(DATASETS)}, got {cfg.dataset!r}")
+    if cfg.model.model not in ("gcn", "egcn", "jk", "mlp"):
+        raise SystemExit(f"--model-model must be gcn, egcn, jk or mlp, got {cfg.model.model!r}")
     hybrid_k_arg(t)  # these three raise on a value they do not know
     hybrid_fused_arg(t)
     hybrid_f32_mode_arg(t)
@@ -245,14 +258,8 @@ def check_ported(cfg: ExperimentConfig) -> None:
         missing.append(f"--train-sharding {t.sharding}")
     if t.batch_size > 0:
         missing.append("--train-batch-size > 0")
-    if t.debug_checks:
-        missing.append("--train-debug-checks")
-    if t.ep and cfg.model.model != "gcn":
-        missing.append(f"--train-ep with --model-model {cfg.model.model}")
     if t.ep and t.n_devices > 1:
         missing.append(f"--train-ep across --train-n-devices {t.n_devices}")
-    if t.optimizer == "optax_amsgrad":
-        missing.append("--train-optimizer optax_amsgrad")
     if missing:
         raise SystemExit(
             "not ported to pytextgcn_tpu_torch yet (see ROADMAP.md): " + ", ".join(missing)

@@ -1,10 +1,10 @@
 """Corpus loading and shared pieces of the port's experiment scripts.
 
-Port of the synthetic branches of ``experiments/common.py``: the
-protocol-scale stand-ins (synthetic-amazon / synthetic-dbpedia) and the
-small synthetic fallback corpus, with the reference's split semantics and
-its label levels for the hierarchy drivers. The CSV datasets are not
-ported yet.
+Port of ``experiments/common.py``: the CSV datasets (amazon, dbpedia and
+the generic csv, ``data/loaders.py``), the protocol-scale stand-ins
+(synthetic-amazon / synthetic-dbpedia) and the small synthetic fallback
+corpus, with the reference's split semantics and its label levels for the
+hierarchy drivers.
 """
 
 from __future__ import annotations
@@ -16,7 +16,19 @@ import torch
 
 from ..build.text2graph import Text2Graph
 from ..config import ExperimentConfig, GraphConfig
+from ..data.loaders import encode_labels, load_amazon, load_csv_dataset, load_dbpedia
 from ..data.synthetic import protocol_corpus, synthetic_corpus
+
+
+def split_blocks(n_train: int, n_val: int, n: int, rng: np.random.Generator,
+                 val_split: float = 0.1):
+    """``(test_idx, val_idx)`` of a corpus laid out train, [val,] test:
+    test is the last block; val is the explicit block between train and
+    test when ``n_val`` > 0 (flat_dbpedia.py:41-60), else a random
+    ``val_split`` of train drawn from ``rng`` (flat_amazon.py:51-63)."""
+    if n_val:
+        return np.arange(n_train + n_val, n), np.arange(n_train, n_train + n_val)
+    return np.arange(n_train, n), rng.choice(n_train, int(val_split * n_train), replace=False)
 
 
 def load_corpus(cfg: ExperimentConfig, levels: Optional[Sequence[str]] = None):
@@ -27,20 +39,46 @@ def load_corpus(cfg: ExperimentConfig, levels: Optional[Sequence[str]] = None):
     none gives the finest level alone; more give that many levels, top-down
     like the reference cascades (2 levels of dbpedia are l1, l2)."""
     rng = np.random.default_rng(cfg.train.seed)
+    if cfg.dataset == "amazon":
+        # flat_amazon.py:42-63: a random 10% of train is val, test is the
+        # appended test block, labels encoded over train + test
+        per_col = []
+        for col in levels or [cfg.labels]:
+            x_tr, y_tr, x_te, y_te = load_amazon(cfg.data_dir or "data/amazon", col)
+            per_col.append((y_tr, y_te))
+        docs = x_tr + x_te
+        test_idx, val_idx = split_blocks(len(x_tr), 0, len(docs), rng, cfg.train.val_split)
+        labels = [encode_labels(list(y_tr) + list(y_te))[0] for y_tr, y_te in per_col]
+        return docs, labels, test_idx, val_idx
+    if cfg.dataset == "dbpedia":
+        # flat_dbpedia.py:41-60: the explicit val block between train and test
+        per_col = []
+        for col in levels or [cfg.labels]:
+            x_tr, y_tr, x_va, y_va, x_te, y_te = load_dbpedia(
+                cfg.data_dir or "data/dbpedia", col)
+            per_col.append((y_tr, y_va, y_te))
+        docs = x_tr + x_va + x_te
+        test_idx, val_idx = split_blocks(len(x_tr), len(x_va), len(docs), rng)
+        labels = [encode_labels(list(y_tr) + list(y_va) + list(y_te))[0]
+                  for y_tr, y_va, y_te in per_col]
+        return docs, labels, test_idx, val_idx
+    if cfg.dataset == "csv":
+        # train.csv / test.csv [/ val.csv] under --data-dir, any text and
+        # label columns (data/loaders.py::load_csv_dataset)
+        if not cfg.data_dir:
+            raise SystemExit("--dataset csv requires --data-dir")
+        docs, raw_levels, n_train, n_val = load_csv_dataset(
+            cfg.data_dir, levels or [cfg.labels], text_col=cfg.text_col)
+        # val.csv is the explicit val block (dbpedia-style), else a random
+        # val fraction of train (amazon-style)
+        test_idx, val_idx = split_blocks(n_train, n_val, len(docs), rng, cfg.train.val_split)
+        return docs, [encode_labels(ls)[0] for ls in raw_levels], test_idx, val_idx
     if cfg.dataset in ("synthetic-amazon", "synthetic-dbpedia"):
         protocol = cfg.dataset.split("-")[1]
         n_docs = int(cfg.n_docs) or (50_000 if protocol == "amazon" else 60_000)
         docs, level_labels, n_train, n_val = protocol_corpus(protocol, n_docs=n_docs)
-        n = len(docs)
-        if protocol == "amazon":
-            # flat_amazon.py:51-63 — val is a random 10% of train, test is
-            # the appended test block
-            val_idx = rng.choice(n_train, int(cfg.train.val_split * n_train), replace=False)
-            test_idx = np.arange(n_train, n)
-        else:
-            # flat_dbpedia.py:41-60 — explicit val block between train/test
-            val_idx = np.arange(n_train, n_train + n_val)
-            test_idx = np.arange(n_train + n_val, n)
+        # amazon's n_val is 0: its val is drawn from train
+        test_idx, val_idx = split_blocks(n_train, n_val, len(docs), rng, cfg.train.val_split)
         if levels and len(levels) > 1:
             if len(levels) > len(level_labels):
                 raise SystemExit(f"{cfg.dataset} has {len(level_labels)} label levels, "
@@ -58,7 +96,7 @@ def load_corpus(cfg: ExperimentConfig, levels: Optional[Sequence[str]] = None):
         if levels and len(levels) > 1:
             return docs, [np.asarray(parent), np.asarray(child)], test_idx, val_idx
         return docs, [np.asarray(child)], test_idx, val_idx
-    raise SystemExit(f"dataset {cfg.dataset!r} is not ported yet (see ROADMAP.md)")
+    raise SystemExit(f"unknown dataset {cfg.dataset!r}")
 
 
 def default_levels(cfg: ExperimentConfig) -> List[str]:
@@ -115,6 +153,7 @@ def trainer_kwargs(cfg: ExperimentConfig, default_optimizer: Optional[str] = Non
         "hybrid_f32_mode": hybrid_f32_mode_arg(cfg.train),
         "masked_head": cfg.train.masked_head,
         "plan_cache": cfg.train.plan_cache or None,
+        "debug_checks": cfg.train.debug_checks,
     }
 
 

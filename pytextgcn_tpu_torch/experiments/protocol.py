@@ -11,7 +11,10 @@ results.csv schema with category ``torch-cuda`` (``torch-cpu`` for a run on
 the CPU). ``--masked-head`` (flat:
 the train rows' head, ops/restricted.py) and ``--ep`` (per-label: the
 batched ensemble, as ``experiments/protocol_parity.py --ep``) tag their
-rows' hierarchy ``flat masked-head`` and ``per-label ep``.
+rows' hierarchy ``flat masked-head`` and ``per-label ep``. ``--model mlp``
+is the TF-IDF + MLP baseline of ``experiments/mlp_parity.py`` (no graph: a
+seeded 10% validation draw, the fixed test block, the finest level, 500
+epochs with the patience stop), its first layer on the CSR kernel.
 
     python -m pytextgcn_tpu_torch.experiments.protocol --protocol amazon \\
         --model gcn --hierarchy flat --seeds 42 43 44
@@ -21,6 +24,7 @@ rows' hierarchy ``flat masked-head`` and ``per-label ep``.
         --epochs 5 --out "$(mktemp -d)/rows.csv"   # a small run on the CPU
     python -m pytextgcn_tpu_torch.experiments.protocol --protocol amazon \
         --hierarchy perlabel --ep
+    python -m pytextgcn_tpu_torch.experiments.protocol --protocol dbpedia --model mlp
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from ..baselines import mlp_flat
 from ..config import GraphConfig, ModelConfig, make_model
 from ..data.synthetic import protocol_corpus
 from ..hierarchy import eval_per_label, train_per_label, train_per_level
@@ -40,7 +45,8 @@ from ..train.results import append_result
 from ..train.trainer import Trainer
 from ..utils import resolve_device
 from .common import build_graph as build_corpus_graph
-from .common import exact_f32
+from .common import exact_f32, split_blocks
+from .mlp import tfidf_splits
 
 # the flat protocols, verbatim (flat_amazon.py:20-35; flat_dbpedia.py:18-34).
 # ``hier_max_df``: the hierarchy drivers build their graphs with max_df=0.6
@@ -105,9 +111,24 @@ def model_factory(model: str, p: dict, generator: torch.Generator):
     return lambda i, o: make_model(mcfg, i, o, generator)
 
 
+def mlp_splits(corpus, seed: int):
+    """``experiments/mlp_parity.py::build_splits``: a random 10% of train as
+    validation drawn from ``default_rng(seed)`` (amazon; dbpedia's explicit
+    block), the test block fixed, TF-IDF fit on the train split."""
+    docs, level_labels, n_train, n_val = corpus
+    test_idx, val_idx = split_blocks(n_train, n_val, len(docs), np.random.default_rng(seed))
+    return tfidf_splits(docs, level_labels, test_idx, val_idx)
+
+
 def run_seed(args, p, gs, level_labels, seed, device, prev):
     """One seed of the configuration. Returns (metrics, a trainer whose
     operator the next seed may adopt, or None)."""
+    if args.model == "mlp":
+        splits = mlp_splits(gs, seed)
+        m = mlp_flat(splits, len(splits.y_train) - 1, epochs=p["epochs"], seed=seed,
+                     device=device, verbose=0)
+        return {"accuracy": m["accuracy"], "f1_macro": m["f1_macro"],
+                "epochs_ran": len(m["history"])}, None
     factory = model_factory(args.model, p, torch.Generator().manual_seed(seed))
     if args.hierarchy == "flat":
         n_classes = int(np.max(gs.y)) + 1
@@ -138,7 +159,7 @@ def run_seed(args, p, gs, level_labels, seed, device, prev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--protocol", choices=list(PROTOCOLS), default="amazon")
-    ap.add_argument("--model", choices=["gcn", "egcn", "jk"], default="gcn")
+    ap.add_argument("--model", choices=["gcn", "egcn", "jk", "mlp"], default="gcn")
     ap.add_argument("--hierarchy", choices=list(HIERARCHY_NAMES), default="flat")
     ap.add_argument("--seeds", type=int, nargs="+", default=[42, 43, 44])
     ap.add_argument("--n-docs", type=int, default=0, help="0 = the protocol's size")
@@ -156,20 +177,29 @@ def main(argv=None):
         ap.error("--masked-head runs the flat protocol only")
     if args.ep and args.hierarchy != "perlabel":
         ap.error("--ep runs the per-label protocol only")
+    if args.model == "mlp" and (args.hierarchy != "flat" or args.masked_head):
+        ap.error("--model mlp runs the flat protocol only")
 
     device = resolve_device(args.device)
     exact_f32()
     p = dict(PROTOCOLS[args.protocol])
+    if args.model == "mlp":
+        p["epochs"] = 500  # experiments/mlp_parity.py, whatever the protocol's GCN count
     if args.epochs:
         p["epochs"] = args.epochs
     n_docs = args.n_docs or (50_000 if args.protocol == "amazon" else 60_000)
-    g, level_labels, n_train, n_val = build_graph(args.protocol, n_docs, args.verbose,
-                                                  hierarchy=args.hierarchy)
+    if args.model == "mlp":
+        corpus = protocol_corpus(args.protocol, n_docs=n_docs)
+        g, level_labels, n_train, n_val = None, None, corpus[2], corpus[3]
+    else:
+        g, level_labels, n_train, n_val = build_graph(args.protocol, n_docs, args.verbose,
+                                                      hierarchy=args.hierarchy)
     hier = HIERARCHY_NAMES[args.hierarchy] + (" masked-head" if args.masked_head else "") + (
         " ep" if args.ep else "")
     rows, prev = [], None
     for seed in args.seeds:
-        gs = remask(g, args.protocol, n_train, n_val, seed)
+        # the MLP has no graph: its seed redraws the split from the corpus
+        gs = corpus if g is None else remask(g, args.protocol, n_train, n_val, seed)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         t0 = time.time()
@@ -191,7 +221,8 @@ def main(argv=None):
     f1s = [m["f1_macro"] for m in rows]
     print(json.dumps({
         "protocol": args.protocol, "model": args.model, "hierarchy": hier,
-        "n_docs": n_docs, "n_nodes": g.n_nodes, "n_edges": g.n_edges, "epochs": p["epochs"],
+        "n_docs": n_docs, "n_nodes": g.n_nodes if g is not None else None,
+        "n_edges": g.n_edges if g is not None else None, "epochs": p["epochs"],
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "summary": {"accuracy": [float(np.mean(accs)), float(np.std(accs))],
                     "f1_macro": [float(np.mean(f1s)), float(np.std(f1s))]},

@@ -36,8 +36,8 @@ import numpy as np
 import torch
 
 from ..core.graph import TextGraph
-from ..models import GCN, export_params
-from ..models.layers import dropout
+from ..models import EGCN, GCN, JumpingKnowledgeNetwork, export_params
+from ..models.layers import dropout, stacked_bilstm
 from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
 from ..ops.spmm import spmm
@@ -84,7 +84,7 @@ def train_per_label(
     """Train one child-label classifier per parent class, one after the
     other, or, with ``ep`` (or a ``mesh`` of one device: an int device
     count or an object with a ``devices`` array), all in one batched step
-    (see the module docstring; GCN members only).
+    (see the module docstring; GCN, EGCN or JK members of one shape).
 
     Returns ``{"trainers": [...], "mapping": {parent: [global child ids]},
     "histories": [...]}``: the mapping holds, per parent class, the sorted
@@ -146,72 +146,137 @@ def train_per_label(
     return {"trainers": trainers, "mapping": mapping, "histories": histories}
 
 
-def _stack_members(models: List[GCN], c_list: List[int], device) -> List[torch.Tensor]:
-    """The members' parameters stacked in ``parameters()`` order (each
-    layer's w, then b): the first layer's w as ``[in, M, H]``, so that the
-    members' feature products are one ``[in, M * H]`` matrix without a
-    copy, every other parameter ``[M, ...]``; the last layer padded to the
-    largest class count with zero weight columns and a ``_PAD_BIAS`` bias."""
+def _roles(model: torch.nn.Module) -> List[str]:
+    """Each parameter's part in the stack, in ``parameters()`` order:
+    'feature' for the weight the identity features multiply (stacked
+    ``[in, M, d]``, so the members' feature products are one ``[in, M * d]``
+    matrix), 'pad_w' / 'pad_b' for the class-count weight and bias (padded
+    to the largest class count), 'plain' for the rest (stacked ``[M, ...]``)."""
+    names = [n for n, _ in model.named_parameters()]
+    if isinstance(model, EGCN):
+        feature, head = "embed.w", f"layers.{len(model.layers) - 1}"
+    elif isinstance(model, JumpingKnowledgeNetwork):
+        feature, head = "layers.0.w", "head"
+    else:
+        feature, head = "layers.0.w", f"layers.{len(model.layers) - 1}"
+    return ["feature" if n == feature else "pad_w" if n == f"{head}.w"
+            else "pad_b" if n == f"{head}.b" else "plain" for n in names]
+
+
+def _stack_members(models: List[torch.nn.Module], c_list: List[int],
+                   device) -> List[torch.Tensor]:
+    """The members' parameters stacked in ``parameters()`` order, each as
+    its role says (:func:`_roles`): the class-count weight padded with zero
+    columns and its bias with ``_PAD_BIAS``."""
     c_max = max(c_list)
-    last = 2 * (len(models[0].layers) - 1)  # index of the last layer's w
     out = []
-    for j, params in enumerate(zip(*(m.parameters() for m in models))):
+    for role, params in zip(_roles(models[0]), zip(*(m.parameters() for m in models))):
         rows = []
         for p, c in zip(params, c_list):
             p = p.detach()
-            if j >= last and c < c_max:
+            if role in ("pad_w", "pad_b") and c < c_max:
                 p = torch.nn.functional.pad(p, (0, c_max - c),
-                                            value=0.0 if j == last else _PAD_BIAS)
+                                            value=0.0 if role == "pad_w" else _PAD_BIAS)
             rows.append(p)
-        out.append(torch.stack(rows, dim=1 if j == 0 else 0).to(device).requires_grad_(True))
+        out.append(torch.stack(rows, dim=1 if role == "feature" else 0).to(device)
+                   .requires_grad_(True))
     return out
 
 
-def _member(j: int, stacked: torch.Tensor, i: int) -> torch.Tensor:
-    """Member ``i``'s slice of stacked parameter ``j`` (still padded)."""
-    return stacked[:, i] if j == 0 else stacked[i]
+def _member(role: str, stacked: torch.Tensor, i: int) -> torch.Tensor:
+    """Member ``i``'s slice of a stacked parameter (still padded)."""
+    return stacked[:, i] if role == "feature" else stacked[i]
 
 
-def _stacked_logits(params: List[torch.Tensor], model: GCN, adj, feats: NodeFeatures,
-                    train: bool = False, generators=None) -> torch.Tensor:
-    """``[N, M, C_max]`` logits of M stacked GCNs (``model`` gives the
-    architecture): each aggregation is one SpMM over ``[N, M * width]``.
-    Member m's dropout masks come from ``generators[m]`` in the order its
-    own model would draw them."""
-    ws, bs = params[0::2], params[1::2]
-    m_count = ws[0].shape[1]
+def _products(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Each member's ``h[:, m] @ w[m]``: ``[N, M, d] x [M, d, e] -> [N, M, e]``.
+    Narrow ``d``: one product against the block-diagonal weights (zeros off
+    the blocks add nothing), since a batched product of M skinny
+    ``[N, d] @ [d, e]`` runs far slower on the card, its backward most;
+    wide ``d`` (EGCN's 2000-wide embedding): one batched product."""
+    n, m_count, d = h.shape
+    if d >= 512:
+        return torch.bmm(h.transpose(0, 1), w).transpose(0, 1)
+    return (h.reshape(n, m_count * d) @ torch.block_diag(*w.unbind(0))).reshape(n, m_count, -1)
+
+
+def _member_dropout(h: torch.Tensor, model, train: bool, generators,
+                    widths: Optional[List[int]] = None) -> torch.Tensor:
+    """Dropout on ``[N, M, d]``, member m's mask drawn from ``generators[m]``
+    in the shape its own model draws: ``widths[m]`` columns when given (the
+    padded logits keep their ``_PAD_BIAS`` columns, undropped)."""
+    if not (train and model.dropout):
+        return h
+    cols = []
+    for i in range(h.shape[1]):
+        c = h.shape[2] if widths is None else widths[i]
+        hi = dropout(h[:, i, :c], model.dropout, True, generators[i])
+        cols.append(torch.cat([hi, h[:, i, c:]], dim=-1) if c < h.shape[2] else hi)
+    return torch.stack(cols, dim=1)
+
+
+def _stacked_logits(params: List[torch.Tensor], model: torch.nn.Module, adj,
+                    feats: NodeFeatures, train: bool = False, generators=None,
+                    c_list: Optional[List[int]] = None) -> torch.Tensor:
+    """``[N, M, C_max]`` logits of M stacked members of ``model``'s
+    architecture (GCN, EGCN or the JK network): each aggregation is one SpMM
+    over ``[N, M * width]``. Member m's dropout masks come from
+    ``generators[m]`` in the order and shapes its own model draws them
+    (``c_list``: the members' class counts, for EGCN's dropout on the
+    logits)."""
+    p = dict(zip([n for n, _ in model.named_parameters()], params))
+    feature = next(k for k, r in zip(p, _roles(model)) if r == "feature")
+    w0 = p[feature]  # [in, M, d]
+    m_count = w0.shape[1]
 
     def aggregate(xw):  # [N, M, d] -> [N, M * d] -> A_hat @ . -> [N, M, d]
         n, _, d = xw.shape
         return spmm(adj, xw.reshape(n, m_count * d)).reshape(n, m_count, d)
 
-    w0 = ws[0]  # [in, M, H]
     xw = feats.matmul(w0.reshape(w0.shape[0], -1)).reshape(-1, m_count, w0.shape[2])
-    h = aggregate(xw) + bs[0]
-    for w, b in zip(ws[1:], bs[1:]):
+    layers = [(p[f"layers.{i}.w"], p[f"layers.{i}.b"]) for i in range(len(model.layers))]
+    if isinstance(model, EGCN):
+        h = _member_dropout(torch.selu(xw + p["embed.b"]), model, train, generators)
+        for i, (w, b) in enumerate(layers):
+            h = aggregate(_products(h, w)) + b
+            if model.activation is not None:
+                h = model.activation(h)
+            last = i == len(layers) - 1
+            h = _member_dropout(h, model, train, generators, c_list if last else None)
+        return h
+    if isinstance(model, JumpingKnowledgeNetwork):
+        h = aggregate(xw) + layers[0][1]
+        acts = [_member_dropout(h, model, train, generators)]
+        for w, b in layers[1:]:
+            acts.append(_member_dropout(aggregate(_products(acts[-1], w)) + b, model, train,
+                                        generators))
+        xs = torch.stack(acts, dim=2).transpose(0, 1)  # [M, N, L, C]
+        lstm = [p[f"lstm.{stem}{sfx}"] for sfx in ("", "_reverse")
+                for stem in ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0")]
+        alpha = stacked_bilstm(xs, lstm[:4], lstm[4:])  # [M, N, L, 2H]
+        score = torch.softmax(torch.einsum("mnlh,mh->mnl", alpha, p["att.w"][..., 0])
+                              + p["att.b"][:, None, None, 0], dim=-1)  # [M, N, L]
+        h = (xs * score[..., None]).sum(dim=2).transpose(0, 1)  # [N, M, C]
+        h = _member_dropout(model.activation(h), model, train, generators)
+        return _products(h, p["head.w"]) + p["head.b"]
+    h = aggregate(xw) + layers[0][1]
+    for w, b in layers[1:]:
         if model.activation is not None:
             h = model.activation(h)
-        if train and model.dropout:
-            h = torch.stack([dropout(h[:, i], model.dropout, True, generators[i])
-                             for i in range(m_count)], dim=1)
-        # the members' products as one against their block-diagonal weights
-        # (zeros off the blocks add nothing): a batched product of M skinny
-        # [N, H] @ [H, C] runs far slower on the card, its backward most
-        n, _, d = h.shape
-        hw = h.reshape(n, m_count * d) @ torch.block_diag(*w.unbind(0))
-        h = aggregate(hw.reshape(n, m_count, -1)) + b
+        h = aggregate(_products(_member_dropout(h, model, train, generators), w)) + b
     return h
 
 
-def ep_train_step(params: List[torch.Tensor], opt: torch.optim.Optimizer, model: GCN, adj,
+def ep_train_step(params: List[torch.Tensor], opt: torch.optim.Optimizer, model, adj,
                   feats: NodeFeatures, y: torch.Tensor, mask: torch.Tensor,
-                  generators) -> torch.Tensor:
+                  generators, c_list: Optional[List[int]] = None) -> torch.Tensor:
     """One batched train step of the stacked members: forward, each
     member's masked cross-entropy (``y``, ``mask``: ``[N, M]``), one
     backward pass of their sum, one optimizer step. Returns the ``[M]``
     losses."""
     opt.zero_grad(set_to_none=True)
-    logits = _stacked_logits(params, model, adj, feats, train=True, generators=generators)
+    logits = _stacked_logits(params, model, adj, feats, train=True, generators=generators,
+                             c_list=c_list)
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, y[..., None])[..., 0]
     losses = (nll * mask).sum(0) / mask.sum(0).clamp(min=1.0)  # as masked_cross_entropy
     losses.sum().backward()
@@ -220,10 +285,16 @@ def ep_train_step(params: List[torch.Tensor], opt: torch.optim.Optimizer, model:
 
 
 def _architecture(models) -> Optional[tuple]:
-    """The shape of the members' GCN apart from its class count, or None
-    when they differ or are not plain GCNs (no batched pass then)."""
-    keys = {(type(m), m.in_dim, m.n_gcn, m.n_hidden, m.dropout, m.activation)
-            if type(m) is GCN else None for m in models}
+    """The shape of the members' model apart from its class count, or None
+    when they differ or are not GCNs, EGCNs or JK networks of one shape (no
+    batched pass then)."""
+    def key(m):
+        if type(m) not in (GCN, EGCN, JumpingKnowledgeNetwork):
+            return None
+        return (type(m), m.in_dim, m.n_gcn, m.n_hidden, m.dropout, m.activation,
+                getattr(m, "embedding_dim", None))
+
+    keys = {key(m) for m in models}
     return keys.pop() if len(keys) == 1 else None
 
 
@@ -249,9 +320,8 @@ def _train_per_label_ep(g: TextGraph, y_child, y_parent, model_factory, *, lr: f
     c_list = [len(classes) for classes, _, _ in members]
     models = [model_factory(g.in_dim, c) for c in c_list]
     if _architecture(models) is None:
-        raise NotImplementedError(
-            "the batched ensemble (--train-ep) runs GCN members of one architecture; "
-            "other models are not ported to it yet (see ROADMAP.md)")
+        raise ValueError("the batched ensemble (--train-ep) stacks members of one "
+                         "architecture: GCNs, EGCNs or JK networks")
     trainers = [Trainer(m, lr=lr, seed=seed, **trainer_kwargs) for m in models]
     lead = trainers[0]
     dev = lead.device
@@ -273,21 +343,27 @@ def _train_per_label_ep(g: TextGraph, y_child, y_parent, model_factory, *, lr: f
     gens = [t.generator for t in trainers]
     histories = [[] for _ in models]
     for epoch in range(epochs):
-        losses = ep_train_step(params, opt, models[0], adj, feats, y, mask, gens)
+        losses = ep_train_step(params, opt, models[0], adj, feats, y, mask, gens, c_list)
+        if lead.debug_checks:
+            Trainer._check_finite(epoch, [("member losses", losses)] + [
+                (f"stacked gradient {j}", q.grad) for j, q in enumerate(params)] + [
+                (f"stacked parameter {j}", q) for j, q in enumerate(params)])
         for hist, loss in zip(histories, losses):
             hist.append({"loss": loss})
         if verbose > 0 and (epoch + 1) % 50 == 0:
             print(f"[EP {epoch + 1}] member losses: {losses.cpu().numpy()}")
 
     state = opt.state_dict()["state"]
+    roles = _roles(models[0])
     with torch.no_grad():
         for i, t in enumerate(trainers):
             member_state = {}
             for j, (p, stacked) in enumerate(zip(t.model.parameters(), params)):
                 # the padded class columns cut off: the member's own shape
-                p.copy_(_member(j, stacked, i)[..., :p.shape[-1]])
+                p.copy_(_member(roles[j], stacked, i)[..., :p.shape[-1]])
                 member_state[j] = {
-                    k: v.clone() if v.dim() == 0 else _member(j, v, i)[..., :p.shape[-1]].clone()
+                    k: v.clone() if v.dim() == 0
+                    else _member(roles[j], v, i)[..., :p.shape[-1]].clone()
                     for k, v in state[j].items()}
             sd = t.optimizer.state_dict()
             t.optimizer.load_state_dict({"state": member_state,

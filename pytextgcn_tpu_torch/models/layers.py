@@ -90,6 +90,38 @@ def bilstm(in_dim: int, hidden: int,
     return lstm
 
 
+def stacked_bilstm(x: torch.Tensor, fwd: Sequence[torch.Tensor],
+                   bwd: Sequence[torch.Tensor]) -> torch.Tensor:
+    """M bidirectional LSTM layers at once, each on its own batch: ``x``
+    ``[M, B, T, C]`` -> ``[M, B, T, 2H]`` (forward, then backward), as
+    ``torch.nn.LSTM(batch_first=True, bidirectional=True)`` of member m
+    gives it for ``x[m]``. ``fwd`` / ``bwd``: each direction's
+    ``(weight_ih [M, 4H, C], weight_hh [M, 4H, H], bias_ih [M, 4H],
+    bias_hh [M, 4H])``, the members' ``nn.LSTM`` parameters stacked. Per
+    direction the input gates of every step are one batched product and
+    each step adds one batched recurrent product (torch's gate order i, f,
+    g, o); the batched per-label ensemble runs its JK members' LSTMs so, where
+    cuDNN would take one call per member."""
+    m, b, t, c = x.shape
+    outs = []
+    for (w_ih, w_hh, b_ih, b_hh), steps in ((fwd, range(t)), (bwd, range(t - 1, -1, -1))):
+        hid = w_hh.shape[-1]
+        gates_x = torch.bmm(x.reshape(m, b * t, c), w_ih.transpose(1, 2)).reshape(
+            m, b, t, 4 * hid) + (b_ih + b_hh)[:, None, None, :]
+        h = cell = None
+        ys = [None] * t
+        for k in steps:
+            gates = gates_x[:, :, k] if h is None else (
+                gates_x[:, :, k] + torch.bmm(h, w_hh.transpose(1, 2)))
+            i, f, g, o = gates.chunk(4, dim=-1)
+            cell = torch.sigmoid(i) * torch.tanh(g) if cell is None else (
+                torch.sigmoid(f) * cell + torch.sigmoid(i) * torch.tanh(g))
+            h = torch.sigmoid(o) * torch.tanh(cell)
+            ys[k] = h
+        outs.append(torch.stack(ys, dim=2))
+    return torch.cat(outs, dim=-1)
+
+
 # JAX lstm_init leaf -> (nn.LSTM attribute stem, stored transposed)
 LSTM_LEAVES = {"wi": ("weight_ih_l0", True), "wh": ("weight_hh_l0", True),
                "bi": ("bias_ih_l0", False), "bh": ("bias_hh_l0", False)}

@@ -15,7 +15,9 @@ backward pass, so 4 per train step and 2 per evaluation. With
 and residual CSR kernel launch that many times each. With ``masked_head``
 the final layer aggregates into the train rows only during ``fit``
 (ops/restricted.py): 2 of the step's 4 launches then run on the
-restricted plans.
+restricted plans. With ``debug_checks`` every step checks that the loss,
+each gradient and each parameter are finite, on whichever of these paths
+the trainer runs.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ class Trainer:
         hybrid_f32_mode: Optional[str] = None,
         masked_head: bool = False,
         plan_cache: Optional[str] = None,
+        debug_checks: bool = False,
     ):
         """``seed`` seeds the dropout generator (parameters come with the
         model). ``use_pallas``: aggregate through the CSR kernel (else the
@@ -77,7 +80,14 @@ class Trainer:
         (exact for GCN; EGCN's dropout on the logits then draws a mask of
         another shape, so its run is statistically equal, not step for
         step; the JK network has no masked head). ``plan_cache``: a
-        directory of persisted plans (ops/plan_cache.py)."""
+        directory of persisted plans (ops/plan_cache.py). ``debug_checks``:
+        after every step, raise ``FloatingPointError`` naming the epoch and
+        the tensor when the loss, a gradient or a parameter holds a NaN or
+        an Inf. The step keeps its path (kernel, hybrid, masked head), so a
+        NaN the kernel produces is caught too; the checks read the device
+        every step. (The JAX trainer's checkify mode runs the segment path,
+        since checkify cannot instrument its Pallas kernel; pass
+        ``use_pallas=False`` for that path here.)"""
         if masked_head and isinstance(model, JumpingKnowledgeNetwork):
             raise ValueError(JK_NO_MASKED_HEAD)
         self.device = resolve_device(device)
@@ -91,6 +101,7 @@ class Trainer:
         self.hybrid_f32_mode = hybrid_f32_mode
         self.masked_head = masked_head
         self.plan_cache = plan_cache
+        self.debug_checks = debug_checks
         self.optimizer = resolve_optimizer(optimizer, self.model.parameters(), lr)
         # one dropout stream per trainer; each fit continues it, so refits
         # draw fresh masks (the JAX trainer folds in a fit counter instead)
@@ -156,14 +167,31 @@ class Trainer:
             self._adj_out_key = key
         return self._adj_out
 
-    def _train_step(self, adj, feats, y, mask, adj_out=None) -> torch.Tensor:
+    def _train_step(self, adj, feats, y, mask, adj_out=None, epoch: int = 0) -> torch.Tensor:
         self.optimizer.zero_grad(set_to_none=True)
         logits = self.model(adj, feats, train=True, generator=self.generator,
                             adj_out=adj_out)
         loss = masked_cross_entropy(logits, y, mask)
         loss.backward()
+        if self.debug_checks:
+            self._check_finite(epoch, [("loss", loss)] + [
+                (f"gradient of {name}", p.grad) for name, p in self.model.named_parameters()
+                if p.grad is not None])
         self.optimizer.step()
+        if self.debug_checks:
+            self._check_finite(epoch, [(f"parameter {name}", p)
+                                       for name, p in self.model.named_parameters()])
         return loss.detach()
+
+    @staticmethod
+    def _check_finite(epoch: int, tensors) -> None:
+        """Raise at the first of ``tensors`` ((name, tensor) pairs) that
+        holds a NaN or an Inf (debug mode: each check reads the device)."""
+        for name, t in tensors:
+            if bool(torch.isnan(t).any()):
+                raise FloatingPointError(f"debug_checks: {name} holds nan at epoch {epoch + 1}")
+            if bool(torch.isinf(t).any()):
+                raise FloatingPointError(f"debug_checks: {name} holds inf at epoch {epoch + 1}")
 
     @torch.no_grad()
     def _eval_step(self, adj, feats, y, train_mask, val_mask, n_classes: int):
@@ -228,7 +256,7 @@ class Trainer:
         width = len(str(epochs))
         t0 = time.time()
         for epoch in range(start_epoch, epochs):
-            loss = self._train_step(adj, feats, y_step, mask_step, adj_out)
+            loss = self._train_step(adj, feats, y_step, mask_step, adj_out, epoch)
             # reading the loss synchronizes with the device: only where the
             # reference rule needs every epoch's loss, or at eval points
             is_eval = (epoch + 1) % eval_every == 0 or epoch == epochs - 1

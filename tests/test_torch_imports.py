@@ -1,5 +1,6 @@
 """The port stands alone: no module of pytextgcn_tpu_torch, and not
-chip_smoke.py, imports jax or anything of the JAX package."""
+chip_smoke.py, imports jax or anything of the JAX package, nor sklearn,
+pandas or optax, which the GPU machine does not have."""
 
 import ast
 import pathlib
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "pytextgcn_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "pytextgcn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "pytextgcn_tpu", "sklearn", "pandas", "optax")
 
 
 def _imported_modules(tree):
@@ -33,12 +34,14 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
         assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
 
 
-# the EGCN/JK, checkpoint and hierarchy modules, and the trainer's operator
-# options (the masked head's restricted operator, the plan cache)
+# the EGCN/JK, checkpoint and hierarchy modules, the trainer's operator
+# options (the masked head's restricted operator, the plan cache), the MLP
+# baselines and the CSV loaders
 MODELS_AND_HIERARCHIES = ["models/jk.py", "train/checkpoint.py", "hierarchy/__init__.py",
            "hierarchy/perlevel.py", "hierarchy/perlabel.py", "experiments/perlevel.py",
            "experiments/perlabel.py", "experiments/protocol.py", "ops/restricted.py",
-           "ops/plan_cache.py"]
+           "ops/plan_cache.py", "models/mlp.py", "baselines/mlp_pipeline.py",
+           "experiments/mlp.py", "data/loaders.py"]
 
 
 def test_every_port_module_is_checked():

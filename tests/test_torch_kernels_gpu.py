@@ -609,3 +609,109 @@ def test_batched_ensemble_on_card_matches_cpu(cuda):
     for tc, tg in zip(*(r["trainers"] for r in runs)):
         for a, b in zip(tg.model.parameters(), tc.model.parameters()):
             torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=2e-4, atol=2e-5)
+
+
+# ---- the MLP baseline's rectangular plans: S [B, V] and S^T [V, B] at H = 256
+
+def _tfidf_like(rng, b, v, nnz_per_row):
+    from scipy import sparse as sp
+
+    rows = np.repeat(np.arange(b), nnz_per_row)
+    cols = rng.integers(0, v, rows.shape[0])
+    m = sp.csr_matrix((rng.random(rows.shape[0]).astype(np.float32), (rows, cols)),
+                      shape=(b, v))
+    m.sum_duplicates()
+    return m
+
+
+@pytest.mark.parametrize("h", [256, 128, 43])
+@pytest.mark.parametrize("shape", [(2000, 5000), (5000, 900)], ids=["wide", "tall"])
+def test_kernel_on_the_mlp_plans_both_ways(cuda, h, shape):
+    """The MLP's first layer: S [B, V] forward, S^T [V, B] for dW (many of
+    its rows empty: words no train document holds)."""
+    from pytextgcn_tpu_torch.models import SparseMatrix
+
+    rng = np.random.default_rng(h)
+    m = _tfidf_like(rng, *shape, nnz_per_row=30)
+    xs = SparseMatrix.from_scipy(m, use_pallas=True, device=cuda)
+    fwd, bwd = xs.plan.fwd, xs.plan.bwd
+    assert (fwd.n_rows, fwd.n_cols, bwd.n_rows, bwd.n_cols) == (*shape, *shape[::-1])
+    for csr in (fwd, bwd):
+        x = torch.randn(csr.n_cols, h, device=cuda)
+        got = spmm_cuda.spmm_csr_kernel(csr, x)
+        torch.cuda.synchronize()
+        _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x), spmm_cuda.spmm_csr_abs(csr, x))
+        assert not got[csr.row_ptr[1:] == csr.row_ptr[:-1]].any()
+
+
+def test_sparse_matmul_autograd_is_the_kernel_both_ways(cuda):
+    from pytextgcn_tpu_torch.models import SparseMatrix
+
+    rng = np.random.default_rng(3)
+    m = _tfidf_like(rng, 1500, 4000, nnz_per_row=25)
+    xs = SparseMatrix.from_scipy(m, use_pallas=True, device=cuda)
+    plain = SparseMatrix.from_scipy(m, use_pallas=False, device=cuda)
+    w = torch.randn(4000, 256, device=cuda, requires_grad=True)
+    w2 = w.detach().clone().requires_grad_(True)
+    ct = torch.randn(1500, 256, device=cuda)
+    k = spmm_cuda.spmm_csr_kernel
+    before = dict(k.shapes)
+    (xs.matmul(w) * ct).sum().backward()
+    torch.cuda.synchronize()
+    assert k.shapes.get((1500, 4000, 256), 0) == before.get((1500, 4000, 256), 0) + 1
+    assert k.shapes.get((4000, 1500, 256), 0) == before.get((4000, 1500, 256), 0) + 1
+    (plain.matmul(w2) * ct).sum().backward()
+    torch.testing.assert_close(w.grad, w2.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_mlp_training_on_card_matches_cpu(cuda):
+    """train_mlp at dropout 0 from the same parameters: the card's kernel
+    path against the CPU's plain version, history and parameters."""
+    from pytextgcn_tpu_torch.baselines import train_mlp
+
+    rng = np.random.default_rng(5)
+    x_tr, x_va = _tfidf_like(rng, 800, 3000, 20), _tfidf_like(rng, 200, 3000, 20)
+    y_tr, y_va = rng.integers(0, 5, 800), rng.integers(0, 5, 200)
+    runs = [train_mlp(x_tr, y_tr, x_va, y_va, 5, dropout=0.0, epochs=12, early_stopping=False,
+                      device=dev) for dev in ("cpu", cuda)]
+    (mc, hc), (mg, hg) = runs
+    np.testing.assert_allclose([l for l, _ in hg], [l for l, _ in hc], rtol=1e-5)
+    for a, b in zip(mg.parameters(), mc.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["egcn", "jk"])
+def test_batched_egcn_and_jk_ensembles_on_card_match_cpu(cuda, name):
+    from pytextgcn_tpu_torch.hierarchy import train_per_label
+    from pytextgcn_tpu_torch.models import EGCN, JumpingKnowledgeNetwork
+
+    g = _restricted_graph(seed=11)
+    rng = np.random.default_rng(2)
+    child = rng.integers(0, 6, g.n_docs)
+    parent = child // 2
+    runs = []
+    for dev in ("cpu", cuda):
+        gen = torch.Generator().manual_seed(4)
+        if name == "egcn":
+            factory = lambda i, o: EGCN(i, o, embedding_dim=64, n_hidden_gcn=32, dropout=0.0,
+                                        generator=gen)
+        else:
+            factory = lambda i, o: JumpingKnowledgeNetwork(i, o, n_hidden_gcn=32, dropout=0.0,
+                                                           generator=gen)
+        runs.append(train_per_label(g, child, parent, factory, epochs=5, seed=2, ep=True,
+                                    trainer_kwargs={"device": dev}))
+    assert spmm_cuda.spmm_csr_kernel.shapes.get((1500, 1500, 96), 0) >= 10
+    for hc, hg in zip(*(r["histories"] for r in runs)):
+        np.testing.assert_allclose([x["loss"] for x in hg], [x["loss"] for x in hc],
+                                   rtol=2e-4, atol=2e-5)
+    for tc, tg in zip(*(r["trainers"] for r in runs)):
+        with torch.no_grad():
+            lc, lg = tc.predict_logits(g), tg.predict_logits(g).cpu()
+        torch.testing.assert_close(lg, lc, rtol=0, atol=1e-4 * float(lc.abs().max()))
+        # the embedding, attention and LSTM are left to the logits: many of
+        # their gradients are zero or near it, and Adam's normalized steps turn
+        # rounding into lr-sized moves there (test_torch_perlabel_ep.py)
+        for (n, a), b in zip(tg.model.named_parameters(), tc.model.parameters()):
+            if not n.startswith(("att.", "lstm.", "embed.")):
+                torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                           atol=2e-4 * float(b.detach().abs().max()))

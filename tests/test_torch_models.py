@@ -298,8 +298,8 @@ def test_share_adjacency_only_with_equal_aggregation():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--model-model", "mlp"], ["--train-ep", "true", "--model-model", "jk"],
-    ["--train-debug-checks", "true"], ["--train-optimizer", "optax_amsgrad"],
+    ["--train-sharding", "allgather"], ["--train-ep", "true", "--train-n-devices", "2"],
+    ["--train-batch-size", "1"], ["--train-sharding", "halo", "--train-n-devices", "2"],
     ["--train-sharding", "halo"], ["--train-batch-size", "64"],
     ["--train-ep", "true", "--train-n-devices", "4"],
 ])
@@ -309,9 +309,22 @@ def test_check_ported_still_refuses(flag):
 
 
 @pytest.mark.parametrize("flag", [["--model-model", "egcn"], ["--model-model", "jk"],
-                                  ["--save-model", "ck"]])
+                                  ["--save-model", "ck"],
+                                  ["--train-ep", "true", "--model-model", "jk"],
+                                  ["--train-ep", "true", "--model-model", "egcn"],
+                                  ["--train-debug-checks", "true"],
+                                  ["--train-optimizer", "optax_amsgrad"],
+                                  ["--dataset", "amazon"], ["--dataset", "dbpedia"],
+                                  ["--dataset", "csv"]])
 def test_check_ported_accepts_egcn_jk_and_save_model(flag):
     check_ported(parse_config(flag))
+
+
+def test_check_ported_sends_the_mlp_to_its_driver():
+    cfg = parse_config(["--model-model", "mlp"])
+    with pytest.raises(SystemExit, match="experiments/mlp.py"):
+        check_ported(cfg)
+    check_ported(cfg, graph=False)
 
 
 @pytest.mark.parametrize("name", ["egcn", "jk"])

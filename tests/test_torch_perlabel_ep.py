@@ -171,3 +171,118 @@ def test_a_one_device_mesh_takes_the_batched_step(ragged_corpus):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_per_label(g, child, parent, _factory(), epochs=2, seed=3, mesh=2,
                         trainer_kwargs=CPU)
+
+
+# ---- EGCN and JK members (tolerance as above; the LSTM against torch.nn.LSTM
+# at 1e-5 relative, TF32 off on the CPU by construction)
+
+def _model_factory(name, dropout=0.5, seed=0):
+    from pytextgcn_tpu_torch.models import EGCN, JumpingKnowledgeNetwork
+
+    gen = torch.Generator().manual_seed(seed)
+    if name == "egcn":
+        return lambda d_in, d_out: EGCN(d_in, d_out, embedding_dim=24, n_hidden_gcn=16,
+                                        dropout=dropout, generator=gen)
+    return lambda d_in, d_out: JumpingKnowledgeNetwork(d_in, d_out, n_hidden_gcn=16,
+                                                       dropout=dropout, generator=gen)
+
+
+def _assert_members_close_but_att_bias(a, b):
+    """Every parameter but the JK network's attention bias, whose gradient
+    is analytically zero (a softmax over the layers does not see a shift):
+    Adam normalizes its rounding noise into full steps, which move it
+    arbitrarily and the model's function not at all; the losses and
+    predictions the callers compare cover it. That noise also reaches the
+    LSTM's entries with near-zero gradients, so each parameter is held
+    within 2e-4 of its largest magnitude (test_torch_models.py's rule)."""
+    for ta, tb in zip(a, b):
+        for (name, pa), pb in zip(ta.model.named_parameters(), tb.model.parameters()):
+            if name != "att.b":
+                want = pb.detach().numpy()
+                np.testing.assert_allclose(pa.detach().numpy(), want, rtol=0,
+                                           atol=2e-4 * np.abs(want).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["egcn", "jk"])
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+def test_ep_matches_sequential_egcn_and_jk(ragged_corpus, name, dropout):
+    """The stacked EGCN (its embedding ``[in, M, 24]``, its dropout on the
+    padded logits drawn in each member's own shape) and JK network (the
+    batched LSTM) give the sequential members' parameters and losses."""
+    g, child, parent = ragged_corpus
+    seq = train_per_label(g, child, parent, _model_factory(name, dropout), epochs=15, seed=3,
+                          trainer_kwargs=CPU)
+    ep = train_per_label(g, child, parent, _model_factory(name, dropout), epochs=15, seed=3,
+                         ep=True, trainer_kwargs=CPU)
+    _assert_members_close_but_att_bias(seq["trainers"], ep["trainers"])
+    for hs, he in zip(seq["histories"], ep["histories"]):
+        np.testing.assert_allclose([r["loss"] for r in he], [r["loss"] for r in hs], **TOL)
+    m_seq = eval_per_label(g, child, parent, seq["trainers"], seq["mapping"])
+    m_ep = eval_per_label(g, child, parent, ep["trainers"], ep["mapping"])
+    np.testing.assert_array_equal(m_ep["predictions"], m_seq["predictions"])
+
+
+@pytest.mark.parametrize("name", ["egcn", "jk"])
+def test_ep_egcn_and_jk_match_jax(ragged_corpus, name):
+    """Shared initial parameters, dropout 0: EGCN against the JAX package's
+    vmapped EP step on a one-device mesh; the JK network against the JAX
+    package's sequential members, since its EP step pads and truncates
+    ``layers[-1]``, which for the JK network is the last GCN layer and not
+    the head (it returns that layer cut to the class count)."""
+    from pytextgcn_tpu.models import EGCN as JaxEGCN
+    from pytextgcn_tpu.models import JumpingKnowledgeNetwork as JaxJK
+
+    g, child, parent = ragged_corpus
+    ep = train_per_label(g, child, parent, _model_factory(name, 0.0, seed=5), epochs=12,
+                         seed=3, ep=True, trainer_kwargs=CPU)
+    fresh = _model_factory(name, 0.0, seed=5)
+    inits = [export_params(fresh(g.in_dim, len(ep["mapping"][c]))) for c in range(2)]
+    base = JaxEGCN if name == "egcn" else JaxJK
+    kw = dict(embedding_dim=24) if name == "egcn" else {}
+    made = []
+
+    class _Fixed(base):
+        def init(self, key):
+            return jax.tree.map(jnp.asarray, self.params)
+
+    def jax_factory(d_in, d_out):
+        model = _Fixed(d_in, d_out, n_hidden_gcn=16, dropout=0.0, **kw)
+        model.params = inits[len(made)]
+        made.append(model)
+        return model
+
+    mesh = make_mesh(1, axis="ensemble") if name == "egcn" else None
+    jep = jax_train_per_label(g, child, parent, jax_factory, epochs=12, seed=3, mesh=mesh)
+    for t, jt in zip(ep["trainers"], jep["trainers"]):
+        ours, theirs = export_params(t.model), jax.tree.map(np.asarray, jt.params)
+        if name == "jk":  # see _assert_members_close_but_att_bias
+            ours["att"].pop("b"), theirs["att"].pop("b")
+        for a, b in zip(jax.tree.leaves(ours), jax.tree.leaves(theirs)):
+            np.testing.assert_allclose(a, b, rtol=0, atol=2e-4 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("t_len", [1, 2, 3])
+def test_stacked_bilstm_matches_torch_lstm(t_len):
+    from pytextgcn_tpu_torch.models.layers import bilstm, stacked_bilstm
+
+    gen = torch.Generator().manual_seed(t_len)
+    lstms = [bilstm(12, 10, gen) for _ in range(3)]
+    x = torch.randn(3, 40, t_len, 12, generator=gen, requires_grad=True)
+    x_ref = x.detach().clone().requires_grad_(True)
+    want = torch.stack([m(x_ref[i])[0] for i, m in enumerate(lstms)])
+    names = ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0")
+    stacked = {sfx: [torch.stack([getattr(m, n + sfx) for m in lstms]).detach()
+                     .requires_grad_(True) for n in names] for sfx in ("", "_reverse")}
+    got = stacked_bilstm(x, stacked[""], stacked["_reverse"])
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), rtol=1e-5,
+                               atol=1e-6)
+    ct = torch.randn(got.shape, generator=gen)
+    (got * ct).sum().backward()
+    (want * ct).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), x_ref.grad.numpy(), rtol=1e-5, atol=1e-6)
+    for sfx in ("", "_reverse"):
+        for n, p in zip(names, stacked[sfx]):
+            ref = torch.stack([getattr(m, n + sfx).grad for m in lstms])
+            # one step reads no recurrent weight: no gradient, torch's is zero
+            got = p.grad if p.grad is not None else torch.zeros_like(p)
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)

@@ -16,6 +16,8 @@ from pytextgcn_tpu_torch import utils
 from pytextgcn_tpu_torch.data import synthetic_corpus
 from pytextgcn_tpu_torch.experiments import flat
 from pytextgcn_tpu_torch.models import GCN, export_params
+from pytextgcn_tpu_torch.ops.hybrid import HybridPlan
+from pytextgcn_tpu_torch.ops.spmm_cuda import SpmmPlan
 from pytextgcn_tpu_torch.train import Trainer
 
 
@@ -75,8 +77,9 @@ def test_flat_experiment_writes_results_row(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--train-debug-checks", "true"], ["--train-sharding", "allgather"],
-    ["--train-sharding", "halo"], ["--model-model", "mlp"], ["--dataset", "amazon"],
+    ["--train-batch-size", "8"], ["--train-sharding", "allgather"],
+    ["--train-sharding", "halo"], ["--train-ep", "true", "--train-n-devices", "2"],
+    ["--train-sharding", "allgather", "--train-n-devices", "2"],
     ["--train-batch-size", "64"],
 ])
 def test_flat_experiment_refuses_unported_settings(flag):
@@ -111,3 +114,65 @@ def test_dropout_stream_is_not_the_parameter_stream():
     # independent streams agree on 0.3^2 + 0.7^2 = 58% of the entries, one stream on all
     assert abs(agree - 0.58) < 0.01, agree
 
+
+
+@pytest.mark.parametrize("path", [dict(), dict(masked_head=True), dict(hybrid_k=16)])
+def test_debug_checks_catches_nan(graphs, path):
+    """Mirrors tests/test_resume_and_misc.py::test_debug_checks_catches_nan:
+    a clean graph trains; a NaN edge weight raises at the first epoch, naming
+    the tensor. Debug mode keeps the trainer's path: the kernel's (its plain
+    version on the CPU), the masked head's or the hybrid's."""
+    import dataclasses
+
+    g, jg = graphs
+    n_classes = 4
+    make = lambda: GCN(g.in_dim, n_classes, n_hidden_gcn=8, dropout=0.0,
+                       generator=torch.Generator().manual_seed(0))
+    t = Trainer(make(), lr=0.05, seed=0, device="cpu", debug_checks=True, **path)
+    assert t.use_pallas and (t.masked_head, t.hybrid_k) == (
+        path.get("masked_head", False), path.get("hybrid_k"))
+    hist = t.fit(g, epochs=3, n_classes=n_classes)  # clean graph: no error
+    assert len(hist) == 3
+    assert isinstance(t._adj.plan, HybridPlan if "hybrid_k" in path else SpmmPlan)
+    assert (t._adj_out is not None) == ("masked_head" in path)
+
+    bad_w = np.asarray(g.edge_w).copy()
+    bad_w[0] = np.nan
+    g_bad = dataclasses.replace(g, edge_w=bad_w)
+    t2 = Trainer(make(), lr=0.05, seed=0, device="cpu", debug_checks=True, **path)
+    with pytest.raises(FloatingPointError, match=r"(?i)nan.*epoch 1"):
+        t2.fit(g_bad, epochs=3, n_classes=n_classes)
+    # the JAX trainer's checkify mode raises on the same graph
+    jbad = dataclasses.replace(jg, edge_w=bad_w)
+    jt = JaxTrainer(JaxGCN(jg.in_dim, n_classes, n_hidden_gcn=8, dropout=0.0), lr=0.05,
+                    seed=0, debug_checks=True)
+    with pytest.raises(Exception, match="(?i)nan"):
+        jt.fit(jbad, epochs=3, n_classes=n_classes)
+
+
+def test_debug_checks_names_an_inf_gradient(graphs):
+    g, _ = graphs
+    model = GCN(g.in_dim, 4, n_hidden_gcn=8, dropout=0.0,
+                generator=torch.Generator().manual_seed(0))
+    model.layers[1].b.register_hook(lambda grad: grad * float("inf"))
+    t = Trainer(model, lr=0.05, device="cpu", debug_checks=True)
+    with pytest.raises(FloatingPointError, match=r"gradient of layers\.1\.b holds inf"):
+        t.fit(g, epochs=2, n_classes=4)
+
+
+def test_flat_experiment_runs_debug_checks_and_optax_amsgrad():
+    for flag in (["--train-debug-checks", "true"], ["--train-optimizer", "optax_amsgrad"]):
+        res = flat.main(["--device", "cpu", "--train-epochs", "6", "--train-verbose", "0",
+                         *flag])
+        losses = [r["loss"] for r in res["history"]]
+        assert len(losses) == 6 and np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert type(res["trainer"].optimizer).__name__ == "OptaxAmsgrad"
+
+
+@pytest.mark.parametrize("driver", ["flat", "perlevel", "perlabel"])
+def test_graph_drivers_refuse_the_mlp(driver):
+    import importlib
+
+    main = importlib.import_module(f"pytextgcn_tpu_torch.experiments.{driver}").main
+    with pytest.raises(SystemExit, match="experiments/mlp.py"):
+        main(["--device", "cpu", "--model-model", "mlp"])
