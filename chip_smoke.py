@@ -110,6 +110,20 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    initialization at dropout 0 (losses, logits, parameters), their steps
    against the sequential members' steps, and the batched LSTM against
    one cuDNN call a member.
+13. device counting and mini-batching, on phase 2's corpus and graph: the
+   corpus's tokens counted by ``word_word_edges_device`` on the card at two
+   chunk budgets (2^24, 2^26; chunks, seconds, peak memory), each equal bit
+   for bit to the native kernel's edges, weights and window count; the
+   graph rebuilt by ``Text2Graph(backend='auto')`` with the native limit set
+   below its triangle (device counting), equal to phase 2's bit for bit;
+   the flat experiment with ``--train-batch-size 4096`` for one epoch (9
+   batches; CSR launches exactly 4 a batch plus 2 for the final evaluate),
+   its first batch's plans built on the card equal to the host's bit for
+   bit, its batch-node logits against the full graph's from the run's
+   initial parameters, the kernel at the subgraph's plans (H = 100 and 43)
+   against its plain version with its times, and the seconds a batch of
+   the batcher, the plans and the step; then a 3,000-doc corpus at batch
+   128 for 5 epochs, whose loss must fall.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -384,7 +398,7 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     n, e = g.n_nodes, g.n_edges
-    log(f"[10/12] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
+    log(f"[10/13] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
         "level or member):")
     _, (cat1, cat2), _, _ = common.load_corpus(cfg, levels=["Cat1", "Cat2"])
     if not np.array_equal(cat2, np.asarray(g.y)[g.n_vocab:]):
@@ -605,7 +619,7 @@ def operator_options(args, card, g, n_classes: int, hidden: int, adj, counters, 
     out, errs, rows_json = {}, [], []
     y = torch.as_tensor(g.y, dtype=torch.int64, device=dev)
     train_mask = torch.as_tensor(g.train_mask, device=dev)
-    log(f"[11/12] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
+    log(f"[11/13] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
 
     # ---- the masked head through the flat experiment
     mcfg = parse_config(base + ["--train-masked-head", "true"])
@@ -1097,7 +1111,7 @@ def mlp_and_last_options(args, card, g, n_classes: int, hidden: int, counters, g
     epochs = MODEL_EPOCHS
     n, e = g.n_nodes, g.n_edges
     out, errs = {}, []
-    log(f"[12/12] the MLP baselines, the CSV loaders and the last trainer options "
+    log(f"[12/13] the MLP baselines, the CSV loaders and the last trainer options "
         f"({epochs} epochs a path):")
 
     # ---- the MLP experiment at the synthetic-amazon scale
@@ -1408,6 +1422,234 @@ def mlp_and_last_options(args, card, g, n_classes: int, hidden: int, counters, g
     return out, errs, plan_rows
 
 
+def counting_and_minibatching(args, card, cfg, g, n_classes: int, adj, counters, gen, dev):
+    """Phase 13: device counting on the 50k-doc corpus against the native
+    kernel at two chunk budgets, ``Text2Graph(backend='auto')`` above the
+    native limit, the flat experiment with ``--train-batch-size`` (the first
+    batch's plans and logits checked, the kernel at the subgraph plans, the
+    per-batch split), and the loss falling on mini-batches of a 3,000-doc
+    corpus. Returns (summary, kernel errors, subgraph plan rows)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pytextgcn_tpu_torch.build import windows
+    from pytextgcn_tpu_torch.build.stopwords import get_stopwords
+    from pytextgcn_tpu_torch.build.vectorizer import CountVectorizer
+    from pytextgcn_tpu_torch.config import check_ported, make_model, parse_config
+    from pytextgcn_tpu_torch.data.batching import NeighborhoodBatcher
+    from pytextgcn_tpu_torch.experiments import common, flat
+    from pytextgcn_tpu_torch.ops import NodeFeatures, spmm_cuda
+    from pytextgcn_tpu_torch.train import Trainer
+
+    kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
+                          spmm_cuda.spmm_csr_abs)
+    out, errs = {}, []
+    log("[13/13] device counting and mini-batching:")
+
+    # ---- device counting against native on the corpus of phase 2
+    gc = cfg.graph
+    docs, _, test_idx, val_idx = common.load_corpus(cfg)
+    cv = CountVectorizer(min_df=gc.min_df, max_df=gc.max_df,
+                         stop_words=get_stopwords("nltk") if gc.rm_stopwords else None)
+    cv.fit_transform(docs)
+    tokens = cv.encode_documents(docs, gc.max_length)
+    n_vocab = len(cv.vocabulary_)
+    if n_vocab != g.n_vocab:
+        fail(f"recomputed vocabulary {n_vocab} != the graph's {g.n_vocab}")
+    t0 = time.perf_counter()
+    native = windows.word_word_edges(tokens, n_vocab, gc.window_size, backend="native",
+                                     n_jobs=8)
+    native_s = time.perf_counter() - t0
+    tri_gb = n_vocab * (n_vocab + 1) // 2 * 4 / 1e9
+    log(f"  tokens [{tokens.shape[0]}, {tokens.shape[1]}], V={n_vocab} (native triangle "
+        f"{tri_gb:.2f} GB); native count {native_s:.2f}s: {len(native[1])} word-word edges, "
+        f"{native[2]} windows")
+    counting = []
+    for budget in (1 << 24, 1 << 26, 1 << 24):
+        n_chunks = sum(1 for _ in windows._iter_chunks(tokens, gc.window_size, budget))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = windows.word_word_edges_device(tokens, n_vocab, gc.window_size,
+                                             chunk_pair_budget=budget, device=dev)
+        secs = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        same = (got[2] == native[2] and np.array_equal(got[0], native[0])
+                and got[1].tobytes() == native[1].tobytes())
+        counting.append({"chunk_pair_budget": budget, "chunks": n_chunks, "seconds": secs,
+                         "peak_memory_gb": peak_gb, "bitwise_equal": same})
+        log(f"  device count, budget 2^{budget.bit_length() - 1}: {secs:.2f}s, {n_chunks} "
+            f"chunks, peak device memory {peak_gb:.2f} GB above the baseline; equal to "
+            f"native bit for bit: {same}")
+        if not same:
+            fail(f"device counting at budget {budget} differs from the native kernel")
+    out["counting"] = {"tokens_shape": list(tokens.shape), "n_vocab": n_vocab,
+                       "native_s": native_s, "device": counting}
+    del tokens, native, got
+
+    # 'auto' above the native limit, for this build only
+    old = os.environ.get("PYTEXTGCN_NATIVE_TRI_BYTES")
+    os.environ["PYTEXTGCN_NATIVE_TRI_BYTES"] = str(int(tri_gb * 1e9) - 1)
+    try:
+        t0 = time.perf_counter()
+        ga = common.build_graph(gc, docs, np.asarray(g.y)[g.n_vocab:], test_idx, val_idx,
+                                verbose=0, device=dev)
+        auto_s = time.perf_counter() - t0
+    finally:
+        if old is None:
+            del os.environ["PYTEXTGCN_NATIVE_TRI_BYTES"]
+        else:
+            os.environ["PYTEXTGCN_NATIVE_TRI_BYTES"] = old
+    same = all(np.asarray(getattr(ga, f)).tobytes() == np.asarray(getattr(g, f)).tobytes()
+               for f in ("edge_src", "edge_dst", "edge_w", "train_mask", "val_mask",
+                         "test_mask", "y"))
+    log(f"  Text2Graph(backend='auto') above the native limit: {auto_s:.1f}s, the graph of "
+        f"phase 2 bit for bit: {same}")
+    if not same:
+        fail("Text2Graph(backend='auto') on the device path built another graph")
+    out["counting"]["auto_graph_s"] = auto_s
+    del ga, docs
+
+    # ---- mini-batching through the flat experiment
+    bsize = 4096
+    bcfg = copy.deepcopy(cfg)
+    bcfg.train.batch_size = bsize
+    bcfg.train.epochs = 1
+    check_ported(bcfg)
+    # the run's first batch (the trainer's batcher has the run's seed)
+    batcher = NeighborhoodBatcher(g, batch_size=bsize, n_hops=2, seed=bcfg.train.seed,
+                                  pad_pow2=False)
+    t0 = time.perf_counter()
+    sub = next(iter(batcher))
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    badj = sub.to_adj(dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    ne = sub.n_real_edges
+    t0 = time.perf_counter()
+    host = spmm_cuda.build_plan_from_arrays(sub.edge_src[:ne], sub.edge_dst[:ne],
+                                            sub.edge_w[:ne], sub.n_real_nodes, device=dev)
+    host_s = time.perf_counter() - t0
+    for pname in ("fwd", "bwd"):
+        a, b = getattr(badj.plan, pname), getattr(host, pname)
+        for f in ("row_ptr", "pairs", "seg_ptr", "seg_row", "seg_slot", "split_row",
+                  "split_ptr"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                fail(f"first batch: the {pname} plan built on the card differs in {f}")
+        if a.n_partials != b.n_partials:
+            fail(f"first batch: {pname} n_partials {a.n_partials} != {b.n_partials}")
+    log(f"  first batch of {bsize}: {sub.n_real_nodes} nodes, {ne} edges; batcher "
+        f"{batch_s:.3f}s, plans on the card {plan_s:.3f}s, on the host {host_s:.3f}s; the "
+        f"card's plans equal the host's bit for bit")
+    # its batch-node logits against the full graph's, from the run's initial
+    # parameters
+    model = make_model(bcfg.model, g.in_dim, n_classes,
+                       generator=torch.Generator().manual_seed(bcfg.train.seed)).to(dev)
+    feats = NodeFeatures.from_graph(g, device=dev)
+    nodes = torch.as_tensor(sub.nodes[:badj.n_nodes], device=dev)
+    locs = torch.as_tensor(sub.batch_local, device=dev, dtype=torch.int64)
+    with torch.no_grad():
+        full = model(adj, feats)
+        part = model(badj, feats.subgraph(nodes))
+    compare(f"batch-node logits of the first batch ({len(sub.batch_local)} documents) vs "
+            "the full graph", part[locs], full[nodes[locs]], full.abs().max(), LOGIT_RTOL)
+    del model, full, part
+    # the kernel at the subgraph's plans, at both widths of the step
+    plan_rows = []
+    for h in (cfg.model.n_hidden, n_classes):
+        for pname in ("fwd", "bwd"):
+            csr = getattr(badj.plan, pname)
+            x = torch.randn(csr.n_cols, h, generator=gen, device=dev)
+            err = compare(f"subgraph {pname} [{csr.n_rows}, {csr.n_cols}] H={h}",
+                          kernel(csr, x), plain(csr, x), mag(csr, x), F32_RTOL)
+            errs.append(err)
+            lib = sparse_csr(csr)
+            _, _, bound, bound_by = spmm_work(csr, h, 4)
+            row = {"plan": f"subgraph {pname}", "n_rows": csr.n_rows, "n_cols": csr.n_cols,
+                   "h": h, "edges": csr.n_edges, "max_abs_err": err,
+                   "ms": time_ms(lambda: kernel(csr, x), 50),
+                   "plain_ms": time_ms(lambda: plain(csr, x), 5, warmup=1),
+                   "library_ms": time_ms(lambda: torch.sparse.mm(lib, x), 20),
+                   "bound_ms": bound, "bound_by": bound_by}
+            plan_rows.append(row)
+            log(f"  spmm_csr {row['plan']} H={h} ({csr.n_edges} edges): kernel "
+                f"{row['ms']:.4f} ms, bound {bound:.4f} ms by {bound_by}, plain "
+                f"{row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms")
+    if args.profile:
+        # the step alone on the first batch's subgraph (no batcher, no plan)
+        ptrainer = Trainer(make_model(bcfg.model, g.in_dim, n_classes,
+                                      generator=torch.Generator().manual_seed(0)),
+                           lr=0.05, device=dev)
+        y = torch.as_tensor(np.asarray(g.y, np.int64), device=dev)[nodes]
+        mask = torch.zeros(badj.n_nodes, dtype=torch.bool, device=dev)
+        mask[locs] = True
+        bfeats = feats.subgraph(nodes)
+        step = lambda: ptrainer._train_step(badj, bfeats, y, mask)
+        step_ms = host_step_ms(step)
+        out["minibatch_step_ms"] = step_ms
+        out["minibatch_step_busy_ms"] = profile_step(
+            args.profile, card, f"mini-batch step, first batch of {bsize}: "
+            f"{sub.n_real_nodes} nodes, {ne} edges", "minibatch", step, step_ms)
+        del ptrainer, bfeats
+    del badj, host, sub, feats, batcher
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, secs, counts = run_path(flat, bcfg, g, n_classes, counters)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    split = res["trainer"].minibatch_seconds
+    n_batches = len(split)
+    want = 4 * n_batches + 2
+    losses = [r["loss"] for r in res["history"]]
+    mean = {k: sum(t[k] for t in split) / n_batches for k in ("batcher", "plan", "step")}
+    log(f"  flat --train-batch-size {bsize}, 1 epoch, in {secs:.1f}s: {n_batches} batches, "
+        f"CSR launches {counts['csr']} (expected {want}); mean loss {losses}; test acc "
+        f"{res['accuracy']:.4f}, macro-F1 {res['f1_macro']:.4f}; peak memory {peak_gb:.2f} GB "
+        "above the baseline")
+    log(f"  per batch (host clock, synchronized): batcher {mean['batcher']:.3f}s, plans "
+        f"{mean['plan']:.4f}s, step {mean['step']:.4f}s; each: "
+        + "; ".join(f"{t['batcher']:.3f}/{t['plan']:.4f}/{t['step']:.4f}" for t in split))
+    if n_batches != -(-int(np.sum(g.train_mask)) // bsize):
+        fail(f"mini-batch run: {n_batches} batches")
+    if counts["csr"] != want or counts["dual"]:
+        fail(f"mini-batch run: launches {counts}, expected {want} CSR launches")
+    if len(losses) != 1 or not np.isfinite(losses).all():
+        fail(f"mini-batch run: losses {losses}")
+    if not (0.0 <= res["accuracy"] <= 1.0 and np.isfinite(res["f1_macro"])):
+        fail(f"mini-batch run: metrics {res['accuracy']}, {res['f1_macro']}")
+    out["minibatch"] = {"batch_size": bsize, "batches": n_batches, "seconds": secs,
+                        "launches": counts["csr"], "loss": losses, "peak_memory_gb": peak_gb,
+                        "first_batch": {"nodes": plan_rows[0]["n_rows"],
+                                        "edges": plan_rows[0]["edges"], "batcher_s": batch_s,
+                                        "card_plan_s": plan_s, "host_plan_s": host_s},
+                        "mean_seconds": mean, "seconds_each": split,
+                        "accuracy": res["accuracy"], "f1_macro": res["f1_macro"]}
+    del res
+
+    # ---- the loss falls on mini-batches of a 3,000-doc corpus
+    ccfg = parse_config(["--dataset", "synthetic-amazon", "--n-docs", "3000",
+                         "--model-n-hidden", str(cfg.model.n_hidden), "--model-dropout", "0.7",
+                         "--train-lr", "0.05", "--train-epochs", "5",
+                         "--train-batch-size", "128", "--train-verbose", "0"])
+    check_ported(ccfg)
+    gs, ncs = flat.build_graph(ccfg)
+    res, secs, counts = run_path(flat, ccfg, gs, ncs, counters)
+    losses = [r["loss"] for r in res["history"]]
+    n_b = len(res["trainer"].minibatch_seconds)
+    log(f"  3,000 docs, batch 128, 5 epochs in {secs:.1f}s: {n_b} batches, CSR launches "
+        f"{counts['csr']} (expected {4 * n_b + 2}); mean loss a epoch "
+        f"{[round(x, 4) for x in losses]}; test acc {res['accuracy']:.4f}")
+    if counts["csr"] != 4 * n_b + 2 or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"mini-batches of the 3,000-doc corpus: launches {counts}, losses {losses}")
+    out["convergence"] = {"n_docs": 3000, "batch_size": 128, "batches": n_b, "seconds": secs,
+                          "losses": losses, "accuracy": res["accuracy"]}
+    return out, errs, plan_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=50_000)
@@ -1471,7 +1713,7 @@ def main(argv=None) -> int:
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/12] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
+    log(f"[1/13] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
         f"kernel, four of the dual kernel) and the native library in "
         f"{time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
@@ -1492,7 +1734,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     g, n_classes = flat.build_graph(cfg)
     n, e = g.n_nodes, g.n_edges
-    log(f"[2/12] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
+    log(f"[2/13] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
         f"(vocab {g.n_vocab}, docs {g.n_docs}), {n_classes} classes")
     widths = (hidden, n_classes)
 
@@ -1500,7 +1742,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     adj = NormAdj.from_graph(g, use_pallas=True, device=dev)
     plan = adj.plan
-    log(f"[3/12] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
+    log(f"[3/13] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
         f"segments, {plan.fwd.n_partials} partial rows (fwd); checks:")
     gen = torch.Generator(device=dev).manual_seed(0)
     f32_errs, bf16_errs = [], []
@@ -1561,7 +1803,7 @@ def main(argv=None) -> int:
     evals = sum("val_f1" in rec for rec in hist) + 1  # + evaluate()
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
-    log(f"[4/12] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
+    log(f"[4/13] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
         f"passes, kernel launches {launches} (expected {expected}); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; test acc {res['accuracy']:.4f}, "
         f"macro-F1 {res['f1_macro']:.4f}; peak memory {peak_gb:.2f} GB")
@@ -1616,14 +1858,14 @@ def main(argv=None) -> int:
     plan_s = time.perf_counter() - t0
     k = hplan.k
     d_bytes = 2 * hplan.d_full.numel() * hplan.d_full.element_size()
-    log(f"[5/12] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
+    log(f"[5/13] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
         f"pair of {d_bytes / 1e6:.1f} MB), {hplan.n_resid} residual edges "
         f"({hplan.n_resid / e:.1%} of E) on the CSR kernel")
     if hplan.d_lo is None or tuple(hplan.d_full.shape) != (n, k) or k != HOT_K:
         fail(f"hybrid plan: K={k}, D {tuple(hplan.d_full.shape)}, split {hplan.d_lo is not None}")
 
     # ------------------------------------------------------------ 6. dual kernel
-    log("[6/12] the dual kernel against its plain version (tolerance relative to "
+    log("[6/13] the dual kernel against its plain version (tolerance relative to "
         "|D| @ |xh| and |D|^T @ |x|):")
     pair = (hplan.d_full, hplan.d_lo)
     d32 = pair[0].float() + pair[1].float()  # the f32 D of the f32 variant
@@ -1695,7 +1937,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 7. hybrid SpMM
-    log(f"[7/12] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
+    log(f"[7/13] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
         f"of |A_hat| @ |x|):")
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev, requires_grad=True)
@@ -1733,7 +1975,7 @@ def main(argv=None) -> int:
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
     path_launches = {"split": hcounts["dual"].get("split", 0)}
-    log(f"[8/12] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
+    log(f"[8/13] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
         f"{evals} forward-only passes; dual kernel launches {hcounts['dual']}, CSR kernel "
         f"launches {hcounts['csr']} (expected {expected} each); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; test acc {hres['accuracy']:.4f}, macro-F1 {hres['f1_macro']:.4f}; "
@@ -1782,7 +2024,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 9. times
-    log(f"[9/12] times on {card} (CUDA events, warm, per launch):")
+    log(f"[9/13] times on {card} (CUDA events, warm, per launch):")
     by_width = []
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev)
@@ -1970,6 +2212,11 @@ def main(argv=None) -> int:
                                                      counters, gen, dev, cat1, cat2)
     f32_errs += last_errs
 
+    # ------------------------------------------------------------ 13. counting, mini-batching
+    slice10, slice10_errs, subgraph_rows = counting_and_minibatching(
+        args, card, cfg, g, n_classes, adj, counters, gen, dev)
+    f32_errs += slice10_errs
+
     def dual_entry(key, replaces, path):
         rows = dual_rows[key]
         avg = lambda name: sum(r[name] for r in rows) / len(rows)
@@ -2021,6 +2268,8 @@ def main(argv=None) -> int:
         "operator_options": options,
         "mlp_plans": mlp_rows,
         "mlp_and_last_options": last,
+        "subgraph_plans": subgraph_rows,
+        "counting_and_minibatching": slice10,
     },
         {**dual_entry("split", "pytextgcn_tpu/ops/fused_dual.py:185",
                       f"flat.run --train-hybrid-k {HOT_K} (f32 split2, the default), "

@@ -36,11 +36,14 @@ class Text2Graph:
         rm_stopwords: bool = True,
         max_length: Optional[int] = None,
         backend: str = "auto",
+        device=None,
     ):
         """Parameter set mirrors the reference (text2graph.py:50-52);
         ``sparse_features`` is gone because features are always implicit, and
         ``backend`` selects the word-word counting kernel
-        ('auto'/'native'/'oracle'; see :func:`.windows.word_word_edges`).
+        ('auto'/'native'/'device'/'oracle'; see
+        :func:`.windows.word_word_edges`), and ``device`` where 'device'
+        counting runs (None = the GPU; resolved only when it runs).
 
         ``n_jobs``: thread count for the native counting kernel. The
         reference documents this knob but never uses it (graphbuilder.pyx:36);
@@ -60,6 +63,7 @@ class Text2Graph:
         self.rm_stopwords = rm_stopwords
         self.max_length = max_length
         self.backend = backend
+        self.device = device
         self.cv: Optional[CountVectorizer] = None
         self.tfidf_: Optional[TfidfTransform] = None
         self.n_docs_: Optional[int] = None
@@ -124,6 +128,7 @@ class Text2Graph:
         ww_coo, ww_w, n_windows = word_word_edges(
             tokens, n_vocab, self.window_size, backend=self.backend,
             n_jobs=self.n_jobs or 0,  # None -> 0 = hardware concurrency
+            device=self.device,
         )
         self._log(2, f"Number of word-word-edges: {len(ww_w)} ({n_windows} windows)")
 

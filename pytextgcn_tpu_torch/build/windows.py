@@ -1,10 +1,12 @@
 """Sliding-window PMI word-word edge construction (host parts).
 
 The port of ``pytextgcn_tpu/build/windows.py``: the exact numpy oracle, the
-PMI finalization and the dispatch to the native C++ counting kernel
-(``native/graphbuilder.cpp``). The JAX package's on-device counting
-backends ('device', 'sharded') are not ported yet (ROADMAP.md); asking for
-them raises instead of running something else.
+PMI finalization, the dispatch to the native C++ counting kernel
+(``native/graphbuilder.cpp``) and the sparse device counting path
+(:func:`word_word_edges_device`: torch sort/unique on the card, for
+vocabularies whose packed count triangle is too large for the host). The
+document-sharded backend ('sharded') is not ported yet (ROADMAP.md); asking
+for it raises instead of running something else.
 
 Reference semantics (textgcn/lib/clib/graphbuilder.pyx):
 
@@ -25,10 +27,12 @@ Reference semantics (textgcn/lib/clib/graphbuilder.pyx):
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
+import torch
 
+from ..utils import resolve_device
 from .native_bridge import native_word_word_edges
 
 
@@ -117,21 +121,162 @@ def pmi_edges_from_pairs(
     return coo, weights
 
 
+# --------------------------------------------------------------------------
+# on-device counting: pair enumeration + one-key sort/unique, merged on device
+# --------------------------------------------------------------------------
+
+
+def _count_chunk(chunk: torch.Tensor, window_size: int, n_vocab: int):
+    """Unique normalized pairs of one chunk of documents with their counts.
+
+    ``chunk``: int32 ``[D, S]`` on the device, padded with -1 (a contiguous
+    suffix), ``S >= window_size``. Returns ``(keys, counts, n_windows)``:
+    the sorted unique keys ``lo * n_vocab + hi`` (``lo <= hi``), their int64
+    counts and the number of valid windows, every row's first one included,
+    as a 0-d tensor."""
+    w = window_size
+    # window validity with the j > 0 break rule (graphbuilder.pyx:96-100):
+    # a window whose last slot is padding ends the row, but the first
+    # window always counts
+    tail_valid = chunk[:, w - 1:] != -1  # [D, n_pos]
+    tail_valid[:, 0] = True
+    vw = tail_valid.to(torch.int32).cumprod(dim=1).bool()
+    n_windows = vw.sum()
+
+    # intra-window pairs k <= l of every window
+    k_off, l_off = (torch.as_tensor(t, device=chunk.device) for t in np.triu_indices(w))
+    win = chunk.unfold(1, w, 1)  # [D, n_pos, w], a view
+    a = win[:, :, k_off]  # [D, n_pos, n_pairs]
+    b = win[:, :, l_off]
+    valid = vw[:, :, None] & (a != -1) & (b != -1)
+    lo = torch.minimum(a, b)[valid].long()
+    hi = torch.maximum(a, b)[valid].long()
+    # one int64 key sorts (lo, hi) lexicographically because hi < n_vocab
+    keys, counts = torch.unique(lo * n_vocab + hi, sorted=True, return_counts=True)
+    return keys, counts, n_windows
+
+
+def _merge_keyed(keys: torch.Tensor, counts: torch.Tensor,
+                 more_keys: torch.Tensor, more_counts: torch.Tensor):
+    """The union of two sorted unique key lists, counts of equal keys summed
+    in int64 (the merged totals can pass 2^31 on large corpora, as the JAX
+    merge widens them for)."""
+    keys, inverse = torch.unique(torch.cat([keys, more_keys]), sorted=True,
+                                 return_inverse=True)
+    summed = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
+    summed.index_add_(0, inverse, torch.cat([counts, more_counts]))
+    return keys, summed
+
+
+def _length_buckets(lengths: np.ndarray, min_len: int):
+    """Bucket document lengths to limit padded work: next power of two
+    (>= min_len), clamped to the max length."""
+    caps = []
+    cap = max(min_len, 16)
+    max_len = int(lengths.max()) if lengths.size else min_len
+    while cap < max_len:
+        caps.append(cap)
+        cap *= 2
+    caps.append(max(cap, max_len))
+    return caps
+
+
+def _iter_chunks(tokens: np.ndarray, window_size: int, chunk_pair_budget: int):
+    """Yield length-bucketed document chunks ``(chunk, n_real)``, each
+    padded with filler rows of -1 to a power-of-two row count and holding
+    at most ``chunk_pair_budget`` window pairs (one document at least)."""
+    n_docs, seq_len = tokens.shape
+    lengths = (tokens != -1).sum(axis=1)
+    n_pairs = window_size * (window_size + 1) // 2
+    order = np.argsort(lengths, kind="stable")
+    caps = _length_buckets(lengths, window_size)
+    lo_len = -1
+    for cap in caps:
+        sel = order[(lengths[order] > lo_len) & (lengths[order] <= cap)]
+        lo_len = cap
+        if sel.size == 0:
+            continue
+        s = max(cap, window_size)
+        n_pos = s - window_size + 1
+        per_doc = n_pos * n_pairs
+        docs_per_chunk = max(1, chunk_pair_budget // per_doc)
+        # a power of two, and never a small bucket padded up to a huge chunk
+        docs_per_chunk = min(docs_per_chunk, 2 * sel.size - 1)
+        docs_per_chunk = 1 << int(np.floor(np.log2(docs_per_chunk)))
+        for off in range(0, sel.size, docs_per_chunk):
+            idx = sel[off : off + docs_per_chunk]
+            chunk = np.full((docs_per_chunk, s), -1, dtype=np.int32)
+            ncols = min(s, seq_len)
+            chunk[: idx.size, :ncols] = tokens[idx][:, :ncols]
+            yield chunk, idx.size
+
+
+def word_word_edges_device(
+    tokens: np.ndarray,
+    n_vocab: int,
+    window_size: int = 20,
+    chunk_pair_budget: int = 1 << 24,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Sparse window counting on ``device`` (None = the GPU), length-bucketed
+    and chunked; memory scales with the distinct co-occurring pairs, not V^2.
+
+    Each chunk's pairs are counted by one sort/unique on int64 keys and
+    merged at once into the running unique list on the device, so the
+    device holds the merged list and one chunk's buffers, whatever the
+    number of chunks. The merged ``(a, b, count)`` comes to the host once;
+    PMI runs there (:func:`pmi_edges_from_pairs`), so the weights equal the
+    native kernel's bit for bit. ``chunk_pair_budget`` bounds a chunk's
+    window pairs (its buffers).
+
+    tokens: int32 [n_docs, seq_len] padded with -1 (contiguous suffix).
+    Returns (coo [E,2] int32, weights [E] float32, n_windows).
+    """
+    tokens = np.ascontiguousarray(tokens, dtype=np.int32)
+    if tokens.size and (tokens.min() < -1 or tokens.max() >= n_vocab):
+        raise ValueError(f"token ids must lie in [0, {n_vocab}) (padding -1)")
+    if tokens.shape[0] == 0:
+        return np.zeros((0, 2), np.int32), np.zeros(0, np.float32), 0
+    device = resolve_device(device)
+    keys = torch.zeros(0, dtype=torch.int64, device=device)
+    counts = torch.zeros(0, dtype=torch.int64, device=device)
+    n_windows = torch.zeros((), dtype=torch.int64, device=device)
+    n_filler = 0
+    for chunk, n_real in _iter_chunks(tokens, window_size, chunk_pair_budget):
+        ck, cc, cw = _count_chunk(torch.as_tensor(chunk).to(device), window_size, n_vocab)
+        keys, counts = _merge_keyed(keys, counts, ck, cc)
+        n_windows += cw
+        n_filler += chunk.shape[0] - n_real
+    keys, counts = keys.cpu().numpy(), counts.cpu().numpy()
+    # every row, real or filler, counts its first window: take the fillers'
+    total_windows = int(n_windows) - n_filler
+    a = (keys // n_vocab).astype(np.int32)
+    b = (keys % n_vocab).astype(np.int32)
+    coo, wgt = pmi_edges_from_pairs(a, b, counts, n_vocab, total_windows)
+    return coo, wgt, total_windows
+
+
 def word_word_edges(
     tokens: np.ndarray,
     n_vocab: int,
     window_size: int = 20,
     backend: str = "auto",
     n_jobs: int = 0,
+    device: Optional[Union[str, torch.device]] = None,
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """Compute word-word PMI edges. ``backend``: 'native' (multithreaded C++
-    host kernel), 'oracle' (python-loop clone; tiny inputs only), or 'auto'.
+    host kernel), 'device' (sparse torch counting on ``device``, see
+    :func:`word_word_edges_device`), 'oracle' (python-loop clone; tiny
+    inputs only), or 'auto'.
 
     'auto' runs the native kernel while its packed V(V+1)/2 count triangle
     (4 bytes per cell) stays under ``PYTEXTGCN_NATIVE_TRI_BYTES`` (default
-    2 GB, ~V=31.6k). Above that the JAX package routes to its sparse device
-    counting, which the port does not have yet, so 'auto' raises there;
-    ``backend='native'`` overrides the limit.
+    2 GB, ~V=31.6k), and the device path above that; ``backend='native'``
+    overrides the limit. ``device`` (None = the GPU) is resolved only when
+    the device path runs, so 'auto' under the limit needs no GPU. Where the
+    native library fails to build, 'auto' raises: it does not fall back to
+    the device path as the JAX package does. The document-sharded backend
+    ('sharded') is not ported yet and raises.
 
     ``n_jobs``: native-kernel thread count; 0 = hardware concurrency.
     Returns (coo [E,2] int32, weights [E] float32, n_windows).
@@ -139,16 +284,11 @@ def word_word_edges(
     if backend == "auto":
         tri_bytes = n_vocab * (n_vocab + 1) // 2 * 4
         limit = int(os.environ.get("PYTEXTGCN_NATIVE_TRI_BYTES", 2_000_000_000))
-        if tri_bytes > limit:
-            raise NotImplementedError(
-                f"a vocabulary of {n_vocab} words needs the sparse device "
-                f"counting backend, which is not ported yet (ROADMAP.md); "
-                f"pass backend='native' to count in a {tri_bytes / 1e9:.1f} GB "
-                f"host triangle instead"
-            )
-        backend = "native"
+        backend = "device" if tri_bytes > limit else "native"
     if backend == "native":
         return native_word_word_edges(tokens, n_vocab, window_size, n_jobs)
+    if backend == "device":
+        return word_word_edges_device(tokens, n_vocab, window_size, device=device)
     if backend == "oracle":
         c_ij, n_windows = sliding_window_counts(tokens, n_vocab, window_size)
         # expand packed triangle into sparse pair lists
@@ -158,9 +298,9 @@ def word_word_edges(
             rows.astype(np.int32), cols.astype(np.int32), c_ij[idx], n_vocab, n_windows
         )
         return coo, wgt, n_windows
-    if backend in ("device", "sharded"):
+    if backend == "sharded":
         raise NotImplementedError(
-            f"word-word counting backend {backend!r} is not ported yet (ROADMAP.md)"
+            "word-word counting backend 'sharded' is not ported yet (ROADMAP.md)"
         )
     raise ValueError(f"unknown backend {backend!r}")
 

@@ -35,7 +35,10 @@ class GraphConfig:
     window_size: int = 20
     max_length: Optional[int] = None
     rm_stopwords: bool = True
-    backend: str = "auto"  # native | oracle | auto
+    # word-word counting: native (host C++) | device (torch on --device) |
+    # oracle | auto (native, or device above PYTEXTGCN_NATIVE_TRI_BYTES);
+    # sharded is not ported yet
+    backend: str = "auto"
     save_path: Optional[str] = None  # directory for TGData_*.npz artifacts
 
 
@@ -71,7 +74,9 @@ class TrainConfig:
     # params/optimizer/loss stay f32)
     pallas_dtype: str = "float32"
     eval_every: int = 1
-    batch_size: int = 0  # >0 (mini-batching) is not ported yet
+    # > 0: mini-batches of that many train documents on their n-hop
+    # neighborhood subgraphs (Trainer.fit_minibatch); flat driver only
+    batch_size: int = 0
     # finite checks after every step (loss, gradients, parameters) on the
     # on the trainer's own path (kernel, hybrid or masked head)
     debug_checks: bool = False
@@ -233,11 +238,14 @@ def hybrid_f32_mode_arg(cfg: TrainConfig):
 DATASETS = ("synthetic", "amazon", "dbpedia", "synthetic-amazon", "synthetic-dbpedia", "csv")
 
 
-def check_ported(cfg: ExperimentConfig, graph: bool = True) -> None:
+def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = True) -> None:
     """Stop with a message naming ROADMAP.md when the config asks for
-    anything this port does not have yet. ``graph``: the config trains a
-    graph model (experiments/flat.py, perlevel.py and perlabel.py, which
-    refuse ``--model-model mlp``); experiments/mlp.py passes False."""
+    anything this port does not have yet, or for an option the run would
+    not honour. ``graph``: the config trains a graph model
+    (experiments/flat.py, perlevel.py and perlabel.py, which refuse
+    ``--model-model mlp``); experiments/mlp.py passes False. ``minibatch``:
+    the driver can mini-batch (``--train-batch-size > 0``); the hierarchy
+    and MLP drivers pass False."""
     t = cfg.train
     if graph and cfg.model.model == "mlp":
         raise SystemExit("--model-model mlp: the TF-IDF + MLP baseline takes no graph; "
@@ -254,10 +262,25 @@ def check_ported(cfg: ExperimentConfig, graph: bool = True) -> None:
     hybrid_k_arg(t)  # these three raise on a value they do not know
     hybrid_fused_arg(t)
     hybrid_f32_mode_arg(t)
+    if t.batch_size > 0:
+        if not minibatch:
+            raise SystemExit("--train-batch-size > 0: only the flat driver mini-batches; the "
+                             "JAX package's hierarchy and MLP drivers do not either "
+                             "(ROADMAP.md)")
+        # options of the full graph's operator: the JAX trainer ignores them
+        # when it mini-batches, the port refuses them
+        unrun = [flag for flag, on in (
+            (f"--train-hybrid-k {t.hybrid_k}", hybrid_k_arg(t) is not None),
+            ("--train-masked-head", t.masked_head), ("--train-ep", t.ep),
+            (f"--train-plan-cache {t.plan_cache}", bool(t.plan_cache)),
+            (f"--train-early-stopping {t.early_stopping}", t.early_stopping is not None)) if on]
+        if unrun:
+            raise SystemExit(f"--train-batch-size > 0 does not run {', '.join(unrun)} (the "
+                             "mini-batch step trains on subgraphs; ROADMAP.md)")
+    if cfg.graph.backend == "sharded":
+        missing.append("--graph-backend sharded")
     if not _off(t.sharding, "off", "none", ""):
         missing.append(f"--train-sharding {t.sharding}")
-    if t.batch_size > 0:
-        missing.append("--train-batch-size > 0")
     if t.ep and t.n_devices > 1:
         missing.append(f"--train-ep across --train-n-devices {t.n_devices}")
     if missing:

@@ -119,8 +119,10 @@ def pop_list_flag(argv: List[str], flag: str) -> Tuple[List[str], Optional[List[
     return argv, values
 
 
-def build_graph(gcfg: GraphConfig, docs, y, test_idx, val_idx, verbose: int = 1):
-    """``Text2Graph`` with the graph knobs ``gcfg`` over the whole corpus."""
+def build_graph(gcfg: GraphConfig, docs, y, test_idx, val_idx, verbose: int = 1,
+                device=None):
+    """``Text2Graph`` with the graph knobs ``gcfg`` over the whole corpus;
+    ``device`` is where device counting runs (None = the GPU), if it runs."""
     t2g = Text2Graph(
         min_df=gcfg.min_df,
         max_df=gcfg.max_df,
@@ -131,6 +133,7 @@ def build_graph(gcfg: GraphConfig, docs, y, test_idx, val_idx, verbose: int = 1)
         save_path=gcfg.save_path,
         verbose=verbose,
         n_jobs=8,
+        device=device,
     )
     return t2g.fit_transform(docs, y, test_idx=test_idx, val_idx=val_idx)
 

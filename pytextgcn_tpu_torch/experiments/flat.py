@@ -16,6 +16,9 @@ Examples:
     python -m pytextgcn_tpu_torch.experiments.flat --dataset synthetic-amazon \
         --train-hybrid-k auto --train-masked-head true --train-plan-cache plans
     python -m pytextgcn_tpu_torch.experiments.flat --device cpu --model-model jk
+    python -m pytextgcn_tpu_torch.experiments.flat --dataset synthetic-amazon \
+        --train-batch-size 1024 --train-epochs 3 # mini-batches on subgraphs
+    python -m pytextgcn_tpu_torch.experiments.flat --graph-backend device  # count on the card
 """
 
 from __future__ import annotations
@@ -43,27 +46,39 @@ def build_graph(cfg):
     y = labels[0]
     n_classes = int(np.max(y)) + 1
     print(f"Data loaded! {len(docs)} docs, {n_classes} classes")
-    g = common.build_graph(cfg.graph, docs, y, test_idx, val_idx, cfg.train.verbose)
+    g = common.build_graph(cfg.graph, docs, y, test_idx, val_idx, cfg.train.verbose,
+                           device=cfg.device)
     print("Graph built!")
     return g, n_classes
 
 
 def run(cfg, g, n_classes):
-    """Train and evaluate on a built graph and append the results row.
-    Returns the test metrics plus the per-epoch history under
-    ``"history"`` and the trainer under ``"trainer"``."""
+    """Train (on the full graph, or on mini-batches of its neighborhood
+    subgraphs with ``--train-batch-size > 0``), evaluate on the full graph
+    and append the results row. Returns the test metrics plus the
+    per-epoch history under ``"history"`` and the trainer under
+    ``"trainer"``."""
     model = make_model(cfg.model, g.in_dim, n_classes,
                        generator=torch.Generator().manual_seed(cfg.train.seed))
     trainer = Trainer(model, lr=cfg.train.lr, seed=cfg.train.seed,
                       **common.trainer_kwargs(cfg))
-    history = trainer.fit(
-        g,
-        epochs=cfg.train.epochs,
-        n_classes=n_classes,
-        verbose=cfg.train.verbose,
-        eval_every=cfg.train.eval_every,
-        early_stopping=cfg.train.early_stopping,
-    )
+    if cfg.train.batch_size > 0:
+        history = trainer.fit_minibatch(
+            g,
+            epochs=cfg.train.epochs,
+            batch_size=cfg.train.batch_size,
+            n_classes=n_classes,
+            verbose=cfg.train.verbose,
+        )
+    else:
+        history = trainer.fit(
+            g,
+            epochs=cfg.train.epochs,
+            n_classes=n_classes,
+            verbose=cfg.train.verbose,
+            eval_every=cfg.train.eval_every,
+            early_stopping=cfg.train.early_stopping,
+        )
     metrics = trainer.evaluate(g, n_classes=n_classes)
     print(f"Test Accuracy: {metrics['accuracy']: .4f}")
     print(f"F1-Macro: {metrics['f1_macro']: .4f}")

@@ -33,7 +33,7 @@ def build_graph(cfg, levels):
     docs, level_labels, test_idx, val_idx = common.load_corpus(cfg, levels=levels)
     print(f"Data loaded! {len(docs)} docs, {len(level_labels)} levels")
     g = common.build_graph(cfg.graph, docs, level_labels[-1], test_idx, val_idx,
-                           cfg.train.verbose)
+                           cfg.train.verbose, device=cfg.device)
     print("Graph built!")
     return g, level_labels
 
@@ -63,7 +63,7 @@ def run(cfg, g, level_labels):
 def main(argv=None):
     argv, levels = common.pop_list_flag(sys.argv[1:] if argv is None else argv, "--levels")
     cfg = parse_config(argv)
-    check_ported(cfg)
+    check_ported(cfg, minibatch=False)
     common.exact_f32()
     g, level_labels = build_graph(cfg, levels or common.default_levels(cfg))
     return run(cfg, g, level_labels)

@@ -66,7 +66,8 @@ CATEGORY = {"cuda": "torch-cuda", "cpu": "torch-cpu"}  # rows of a CPU run say s
 HIERARCHY_NAMES = {"flat": "flat", "perlevel": "per-level", "perlabel": "per-label"}
 
 
-def build_graph(protocol: str, n_docs: int, verbose: int = 1, hierarchy: str = "flat"):
+def build_graph(protocol: str, n_docs: int, verbose: int = 1, hierarchy: str = "flat",
+                device=None):
     """``(graph, level_labels, n_train, n_val)``; the graph's masks are
     placeholders for :func:`remask`."""
     p = PROTOCOLS[protocol]
@@ -77,7 +78,8 @@ def build_graph(protocol: str, n_docs: int, verbose: int = 1, hierarchy: str = "
                        rm_stopwords=False)
     t0 = time.time()
     g = build_corpus_graph(gcfg, docs, np.asarray(level_labels[-1]),
-                           np.arange(n_train + n_val, len(docs)), np.arange(0), verbose)
+                           np.arange(n_train + n_val, len(docs)), np.arange(0), verbose,
+                           device=device)
     if verbose:
         print(f"[{protocol}] graph: N={g.n_nodes} (vocab {g.n_vocab}) E={g.n_edges} "
               f"built in {time.time() - t0:.1f}s", flush=True)
@@ -193,7 +195,7 @@ def main(argv=None):
         g, level_labels, n_train, n_val = None, None, corpus[2], corpus[3]
     else:
         g, level_labels, n_train, n_val = build_graph(args.protocol, n_docs, args.verbose,
-                                                      hierarchy=args.hierarchy)
+                                                      hierarchy=args.hierarchy, device=device)
     hier = HIERARCHY_NAMES[args.hierarchy] + (" masked-head" if args.masked_head else "") + (
         " ep" if args.ep else "")
     rows, prev = [], None

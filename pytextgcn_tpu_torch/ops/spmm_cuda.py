@@ -7,8 +7,9 @@ Hopper replacement (``csrc/spmm_csr.cu``, whose header explains the design)
 gathers the rows itself from a destination-sorted CSR plan, so the tile
 padding, ``visited`` mask and chunking have no counterpart here.
 
-* :func:`build_csr_plan` — host (numpy) plan for one direction: CSR arrays
-  plus the row segments the kernel's warps work on.
+* :func:`build_csr_plan` — the plan for one direction: CSR arrays plus the
+  row segments the kernel's warps work on; built on the host from numpy
+  arrays, or on the device from tensors (the same plan bit for bit).
 * :func:`spmm_csr_reference` — the plain PyTorch version (gather, weight,
   ``index_add_``) over the same plan arrays.
 * :func:`spmm_csr` — the wrapper: the kernel for a CUDA tensor (or raise),
@@ -93,16 +94,18 @@ class SpmmPlan:
 
 def build_csr_plan(rows, cols, w, n_rows: int, n_cols: int,
                    device: torch.device) -> CsrPlan:
-    """Host-side CSR + segment plan of ``A[rows[e], cols[e]] += w[e]``."""
+    """CSR + segment plan of ``A[rows[e], cols[e]] += w[e]`` on ``device``.
+    Numpy edge arrays are planned on the host and copied; tensors are
+    planned on ``device`` by :func:`_build_csr_plan_torch`, which gives the
+    same plan bit for bit."""
+    if isinstance(rows, torch.Tensor):
+        return _build_csr_plan_torch(rows, cols, w, n_rows, n_cols, torch.device(device))
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     w = np.asarray(w, np.float32)
     e = rows.shape[0]
-    if e >= 2**31:
-        raise ValueError(f"{e} edges do not fit the kernel's int32 edge offsets")
-    if e and (rows.min() < 0 or rows.max() >= n_rows or cols.min() < 0
-              or cols.max() >= n_cols):
-        raise ValueError("edge endpoint out of range")
+    _check_edges(e, (rows.min(), rows.max(), cols.min(), cols.max()) if e else None,
+                 n_rows, n_cols)
     order = np.argsort(rows, kind="stable")
     counts = np.bincount(rows, minlength=n_rows)
     row_ptr = np.zeros(n_rows + 1, np.int64)
@@ -139,11 +142,71 @@ def build_csr_plan(rows, cols, w, n_rows: int, n_cols: int,
     )
 
 
+def _check_edges(e: int, bounds, n_rows: int, n_cols: int) -> None:
+    """The kernel's int32 edge offsets, and endpoints ``bounds`` (row min,
+    row max, col min, col max; None without edges) inside the matrix."""
+    if e >= 2**31:
+        raise ValueError(f"{e} edges do not fit the kernel's int32 edge offsets")
+    if bounds is not None:
+        rmin, rmax, cmin, cmax = (int(b) for b in bounds)
+        if rmin < 0 or rmax >= n_rows or cmin < 0 or cmax >= n_cols:
+            raise ValueError("edge endpoint out of range")
+
+
+def _build_csr_plan_torch(rows: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
+                          n_rows: int, n_cols: int, device: torch.device) -> CsrPlan:
+    """:func:`build_csr_plan`'s numpy steps in torch on ``device``: a stable
+    sort for the stable argsort, ``bincount``/``cumsum`` for ``row_ptr``,
+    ``repeat_interleave`` for the segments."""
+    rows = rows.to(device=device, dtype=torch.int64)
+    cols = cols.to(device=device, dtype=torch.int64)
+    w = w.to(device=device, dtype=torch.float32)
+    e = rows.shape[0]
+    _check_edges(e, torch.stack([rows.min(), rows.max(), cols.min(), cols.max()]).tolist()
+                 if e else None, n_rows, n_cols)
+    i64 = dict(dtype=torch.int64, device=device)
+    order = torch.sort(rows, stable=True).indices
+    counts = torch.bincount(rows, minlength=n_rows)
+    row_ptr = torch.zeros(n_rows + 1, **i64)
+    row_ptr[1:] = torch.cumsum(counts, 0)
+
+    segs_per_row = torch.clamp(-(-counts // SEG_EDGES), min=1)
+    n_segs = int(segs_per_row.sum())
+    seg_row = torch.repeat_interleave(torch.arange(n_rows, **i64), segs_per_row,
+                                      output_size=n_segs)
+    first_seg = torch.zeros(n_rows, **i64)
+    first_seg[1:] = torch.cumsum(segs_per_row[:-1], 0)
+    k = torch.arange(n_segs, **i64) - first_seg[seg_row]
+    seg_ptr = torch.cat([row_ptr[seg_row] + k * SEG_EDGES, torch.full((1,), e, **i64)])
+
+    cut = segs_per_row[seg_row] > 1
+    seg_slot = torch.where(cut, torch.cumsum(cut, 0) - 1, -1)
+    split_row = torch.nonzero(segs_per_row > 1).flatten()
+    split_ptr = torch.zeros(split_row.shape[0] + 1, **i64)
+    split_ptr[1:] = torch.cumsum(segs_per_row[split_row], 0)
+
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    pairs = torch.stack([cols[order].to(torch.int32), w[order].view(torch.int32)], dim=1)
+    return CsrPlan(
+        row_ptr=i32(row_ptr),
+        pairs=pairs.contiguous(),
+        seg_ptr=i32(seg_ptr),
+        seg_row=i32(seg_row),
+        seg_slot=i32(seg_slot),
+        split_row=i32(split_row),
+        split_ptr=i32(split_ptr),
+        n_rows=int(n_rows),
+        n_cols=int(n_cols),
+        n_partials=int(split_ptr[-1]),
+    )
+
+
 def build_plan_from_arrays(src, dst, w, n_nodes: int, compute_dtype: str = "float32",
                            device: torch.device = torch.device("cpu")) -> SpmmPlan:
-    """Forward (``out[dst] += w x[src]``) and transpose plans from host
-    numpy edge arrays. The transpose plan is built in general, not assumed
-    equal to the forward one."""
+    """Forward (``out[dst] += w x[src]``) and transpose plans from numpy
+    edge arrays (planned on the host) or tensors (planned on ``device``).
+    The transpose plan is built in general, not assumed equal to the
+    forward one."""
     if compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE_DTYPES)}, "
                          f"got {compute_dtype!r}")

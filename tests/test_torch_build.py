@@ -5,6 +5,7 @@ import hashlib
 
 import numpy as np
 import pytest
+import torch
 
 from pytextgcn_tpu import Text2Graph as JaxText2Graph
 from pytextgcn_tpu import TextGraph as JaxTextGraph
@@ -86,15 +87,19 @@ def test_gcn_normalize_matches_jax():
 
 def test_unported_counting_backends_raise(monkeypatch):
     tokens = np.array([[0, 1, 2, -1]], np.int32)
-    for backend in ("device", "sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            windows.word_word_edges(tokens, 3, 2, backend=backend)
-    # 'auto' above the native triangle limit needs the device backend: raise
-    monkeypatch.setenv("PYTEXTGCN_NATIVE_TRI_BYTES", "8")
+    # 'sharded' is not ported; 'device' is (tests/test_torch_windows_device.py)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        windows.word_word_edges(tokens, 3, 2, backend="auto")
-    coo, w, n_windows = windows.word_word_edges(tokens, 3, 2, backend="native")
+        windows.word_word_edges(tokens, 3, 2, backend="sharded")
     ocoo, ow, on = windows.word_word_edges(tokens, 3, 2, backend="oracle")
-    np.testing.assert_array_equal(coo, ocoo)
-    np.testing.assert_array_equal(w, ow)
-    assert n_windows == on
+    # 'auto' above the native triangle limit counts on the device: the GPU
+    # unless a device is given, never the CPU in its place
+    monkeypatch.setenv("PYTEXTGCN_NATIVE_TRI_BYTES", "8")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        windows.word_word_edges(tokens, 3, 2, backend="auto")
+    for backend, kw in (("auto", {"device": "cpu"}), ("device", {"device": "cpu"}),
+                        ("native", {})):
+        coo, w, n_windows = windows.word_word_edges(tokens, 3, 2, backend=backend, **kw)
+        np.testing.assert_array_equal(coo, ocoo)
+        np.testing.assert_array_equal(w, ow)
+        assert n_windows == on

@@ -715,3 +715,67 @@ def test_batched_egcn_and_jk_ensembles_on_card_match_cpu(cuda, name):
             if not n.startswith(("att.", "lstm.", "embed.")):
                 torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
                                            atol=2e-4 * float(b.detach().abs().max()))
+
+
+# ---- slice 10: the plan built on the card, device counting, mini-batching
+
+_PLAN_FIELDS = ("row_ptr", "pairs", "seg_ptr", "seg_row", "seg_slot", "split_row", "split_ptr")
+
+
+@pytest.mark.parametrize("hubs", [False, True], ids=["uniform", "hubs"])
+def test_plan_built_on_card_equals_host_plan(cuda, hubs):
+    rng = np.random.default_rng(31)
+    n, e = 3000, 40_000
+    src = rng.integers(0, n, e)
+    dst = (np.concatenate([rng.integers(0, 3, e - e // 10), rng.integers(0, n, e // 10)])
+           if hubs else rng.integers(0, n, e))
+    w = rng.standard_normal(e).astype(np.float32)
+    host = spmm_cuda.build_plan_from_arrays(src, dst, w, n, device=cuda)
+    card = spmm_cuda.build_plan_from_arrays(*(torch.as_tensor(a, device=cuda)
+                                              for a in (src, dst, w)), n, device=cuda)
+    for a, b in ((card.fwd, host.fwd), (card.bwd, host.bwd)):
+        assert a.device.type == "cuda"
+        for f in _PLAN_FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert a.n_partials == b.n_partials
+    x = torch.randn(n, 43, device=cuda)
+    assert torch.equal(spmm_cuda.spmm_csr_kernel(card.fwd, x),
+                       spmm_cuda.spmm_csr_kernel(host.fwd, x))
+
+
+@pytest.mark.parametrize("budget", [1 << 24, 1 << 14], ids=["default-budget", "many-chunks"])
+def test_device_counting_on_card_equals_native(cuda, budget):
+    from pytextgcn_tpu_torch.build import windows
+
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(0, 49, size=3000)
+    tokens = np.full((3000, 48), -1, dtype=np.int32)
+    for i, length in enumerate(lengths):
+        tokens[i, :length] = rng.integers(0, 500, size=length)
+    got = windows.word_word_edges_device(tokens, 500, 10, chunk_pair_budget=budget,
+                                         device=cuda)
+    want = windows.word_word_edges(tokens, 500, 10, backend="native")
+    assert got[2] == want[2]
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1].tobytes() == want[1].tobytes()
+
+
+def test_minibatch_training_on_card_matches_cpu(cuda):
+    from pytextgcn_tpu_torch.train import Trainer
+
+    g = _restricted_graph(seed=7)
+    hists, params = [], []
+    for dev in ("cpu", cuda):
+        model = GCN(g.in_dim, 6, n_hidden_gcn=100, dropout=0.0,
+                    generator=torch.Generator().manual_seed(3))
+        # lr 0.005: at 0.05 Adam's normalized steps turn the kernel's other
+        # summation order into moves of 2e-5 in 2 of W1's 150,000 entries
+        t = Trainer(model, lr=0.005, seed=1, device=dev)
+        before = spmm_cuda.spmm_csr_kernel.launches
+        hists.append([r["loss"] for r in t.fit_minibatch(g, epochs=2, batch_size=256)])
+        params.append([p.detach().cpu() for p in t.model.parameters()])
+    # 3 batches an epoch, 4 launches a step on the card
+    assert spmm_cuda.spmm_csr_kernel.launches == before + 4 * 3 * 2
+    np.testing.assert_allclose(hists[1], hists[0], rtol=1e-5, atol=1e-6)
+    for a, b in zip(params[1], params[0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

@@ -299,8 +299,9 @@ def test_share_adjacency_only_with_equal_aggregation():
 
 @pytest.mark.parametrize("flag", [
     ["--train-sharding", "allgather"], ["--train-ep", "true", "--train-n-devices", "2"],
-    ["--train-batch-size", "1"], ["--train-sharding", "halo", "--train-n-devices", "2"],
-    ["--train-sharding", "halo"], ["--train-batch-size", "64"],
+    ["--train-batch-size", "1", "--train-hybrid-k", "128"],
+    ["--train-sharding", "halo", "--train-n-devices", "2"],
+    ["--train-sharding", "halo"], ["--graph-backend", "sharded"],
     ["--train-ep", "true", "--train-n-devices", "4"],
 ])
 def test_check_ported_still_refuses(flag):
@@ -315,7 +316,8 @@ def test_check_ported_still_refuses(flag):
                                   ["--train-debug-checks", "true"],
                                   ["--train-optimizer", "optax_amsgrad"],
                                   ["--dataset", "amazon"], ["--dataset", "dbpedia"],
-                                  ["--dataset", "csv"]])
+                                  ["--dataset", "csv"], ["--train-batch-size", "64"],
+                                  ["--graph-backend", "device"]])
 def test_check_ported_accepts_egcn_jk_and_save_model(flag):
     check_ported(parse_config(flag))
 

@@ -77,10 +77,10 @@ def test_flat_experiment_writes_results_row(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--train-batch-size", "8"], ["--train-sharding", "allgather"],
+    ["--graph-backend", "sharded"], ["--train-sharding", "allgather"],
     ["--train-sharding", "halo"], ["--train-ep", "true", "--train-n-devices", "2"],
     ["--train-sharding", "allgather", "--train-n-devices", "2"],
-    ["--train-batch-size", "64"],
+    ["--train-batch-size", "8", "--train-masked-head", "true"],
 ])
 def test_flat_experiment_refuses_unported_settings(flag):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
