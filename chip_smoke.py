@@ -125,6 +125,29 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    the batcher, the plans and the step; then a 3,000-doc corpus at batch
    128 for 5 epochs, whose loss must fall.
 
+14. tooling and drivers: (a) the probe (``ops/probe.py``) on the card:
+   gather ns a row (gathered and summed, and copied out), stream, D-read,
+   f32, TF32 and bf16 rates, each within 1.05 of the H100's data-sheet
+   peak, printed beside the cost model's constants, and the floor's price
+   of a residual edge (``_GATHER_NS``) in use beside this run's, below the
+   CSR kernel's edge; (b) the bench's variant loop
+   (``pytextgcn_tpu_torch/bench.py``) on phase 2's graph: every variant
+   runs, its kernel launches a step equal what its plans imply (the
+   explicit-K variants: the split, f32 and bf16 dual kernels), losses
+   finite, its floor check ok and every roofline and floor fraction within
+   1.05, the floors held against the host's step and against the floor
+   path's device busy time (torch.profiler); (c) the hyperopt driver, a 2-fold grid at
+   3,000 documents, flat and per-label: no NaN row, CSR launches exact;
+   (d) ``benchmark_graph`` with the native and device backends at 3,000
+   documents and ``--plan-bench``: the same edges; (e) the protocol driver
+   with ``--hybrid-k 4096`` in split2 and in bf16, 5 epochs each on one
+   build of its 50k-doc graph: dual-kernel launches exact; (g) the host graph build and the
+   CSR plan build with and without ``tune_allocator``
+   (``PYTEXTGCN_NO_MALLOPT=1``), each in a process of its own
+   (``--allocator-timing``). (f), compute-sanitizer over the kernels, is
+   left out: the card's machine ships the tool, and it answers "Device not
+   supported" for the card (ROADMAP.md).
+
 It prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -142,12 +165,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks: HBM3 bandwidth, f32 outside the tensor cores,
-# dense bf16 and dense TF32 on the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12
-PEAK_TF32_FLOP_PER_S = 495e12
 HOT_K = 4096  # the hybrid's hot-set size on the main path
 MODEL_EPOCHS = 5  # epochs of each phase-10 path (a level or member each)
 K_SWEEP = (1024, 2048, 4096)
@@ -162,9 +179,26 @@ LOGIT_RTOL = 1e-4  # logits two sums deep, relative to the largest logit
 # sequential members (ep_against_sequential)
 KINK_MARGIN = 1e-5
 SPLIT2_RTOL = 3e-5  # the split2 class against f32 (tests/test_spmm_hybrid.py:73-79)
+PEAK_SLACK = 1.05  # a probe reading above this share of its spec peak is a fault
+BENCH_EPOCHS = 5  # steps in each of the bench's timed blocks, phase 14
+HYPEROPT_EPOCHS = 10  # epochs of each fold in phase 14's grid
+
+
+def spec_peak(key: str) -> float:
+    """An H100 data-sheet peak in bytes or flops a second, from the port's
+    one table of them (``train/profiling.py::H100_PEAK``): ``hbm_gbps``,
+    ``f32_tflops``, ``tf32_tflops`` or ``bf16_tflops``."""
+    from pytextgcn_tpu_torch.train.profiling import H100_PEAK
+
+    return H100_PEAK[key] * (1e9 if key == "hbm_gbps" else 1e12)
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
+    if msg.startswith("[") and "/14]" in msg[:7]:  # a phase's header: when it began
+        msg = f"{msg.split(']', 1)[0]} at {time.perf_counter() - _T0:.1f}s]{msg.split(']', 1)[1]}"
     print(msg, flush=True)
 
 
@@ -256,27 +290,14 @@ def compare(name: str, got, want, scale, rtol: float, atol: float = ATOL) -> flo
     return err
 
 
-def device_busy_us(trace_path: str) -> float:
-    """Microseconds in which the device ran something, from a chrome trace:
-    the union of its kernel, memcpy and memset spans."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    spans = sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in events
-                   if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, float("-inf")
-    for s, t in spans:
-        if t > end:
-            busy += t - max(s, end)
-            end = t
-    return busy
-
-
 def profile_step(out_dir: str, card: str, title: str, tag: str, step, step_ms: float) -> float:
     """torch.profiler over 5 calls of ``step``: writes its table and chrome
     trace under ``out_dir`` and returns the device's busy ms a step (the
     union of its kernel, memcpy and memset spans)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from pytextgcn_tpu_torch.train.profiling import device_busy_us
 
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -321,8 +342,8 @@ def spmm_work(csr, h: int, x_bytes: int):
     e = csr.n_edges
     n_bytes = 4 * (csr.n_rows + 1) + 8 * e + csr.n_cols * h * x_bytes + csr.n_rows * h * 4
     flops = 2 * e * h
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_bytes = n_bytes / spec_peak("hbm_gbps") * 1e3
+    t_ops = flops / spec_peak("f32_tflops") * 1e3
     return n_bytes, flops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -338,8 +359,8 @@ def dual_work(variant: int, n: int, k: int, h: int):
     d_item, x_item = {fd.SPLIT: (4, 4), fd.BF16: (2, 2), fd.F32: (4, 4)}[variant]
     n_bytes = n * k * d_item + (n + k) * h * (x_item + 4)
     flops = (1 if variant == fd.BF16 else 3) * 2 * 2 * n * k * h
-    peak = PEAK_TF32_FLOP_PER_S if variant == fd.F32 else PEAK_BF16_FLOP_PER_S
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    peak = spec_peak("tf32_tflops") if variant == fd.F32 else spec_peak("bf16_tflops")
+    t_bytes = n_bytes / spec_peak("hbm_gbps") * 1e3
     t_ops = flops / peak * 1e3
     return n_bytes, flops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -398,7 +419,7 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     n, e = g.n_nodes, g.n_edges
-    log(f"[10/13] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
+    log(f"[10/14] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
         "level or member):")
     _, (cat1, cat2), _, _ = common.load_corpus(cfg, levels=["Cat1", "Cat2"])
     if not np.array_equal(cat2, np.asarray(g.y)[g.n_vocab:]):
@@ -619,7 +640,7 @@ def operator_options(args, card, g, n_classes: int, hidden: int, adj, counters, 
     out, errs, rows_json = {}, [], []
     y = torch.as_tensor(g.y, dtype=torch.int64, device=dev)
     train_mask = torch.as_tensor(g.train_mask, device=dev)
-    log(f"[11/13] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
+    log(f"[11/14] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
 
     # ---- the masked head through the flat experiment
     mcfg = parse_config(base + ["--train-masked-head", "true"])
@@ -1111,7 +1132,7 @@ def mlp_and_last_options(args, card, g, n_classes: int, hidden: int, counters, g
     epochs = MODEL_EPOCHS
     n, e = g.n_nodes, g.n_edges
     out, errs = {}, []
-    log(f"[12/13] the MLP baselines, the CSV loaders and the last trainer options "
+    log(f"[12/14] the MLP baselines, the CSV loaders and the last trainer options "
         f"({epochs} epochs a path):")
 
     # ---- the MLP experiment at the synthetic-amazon scale
@@ -1446,7 +1467,7 @@ def counting_and_minibatching(args, card, cfg, g, n_classes: int, adj, counters,
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     out, errs = {}, []
-    log("[13/13] device counting and mini-batching:")
+    log("[13/14] device counting and mini-batching:")
 
     # ---- device counting against native on the corpus of phase 2
     gc = cfg.graph
@@ -1650,6 +1671,233 @@ def counting_and_minibatching(args, card, cfg, g, n_classes: int, adj, counters,
     return out, errs, plan_rows
 
 
+def probe_against_spec(card, dev):
+    """Phase 14 (a): the probe's readings, each within ``PEAK_SLACK`` of the
+    H100's data-sheet peak, beside the cost model's constants. Returns
+    (summary, the probe)."""
+    from pytextgcn_tpu_torch.ops import hybrid
+    from pytextgcn_tpu_torch.ops.probe import _BAG, probe_chip
+
+    pr = probe_chip(device=dev)
+    # the gathers' bytes to and from HBM a row: the copy writes its 512-byte
+    # row and reads an 8-byte index; the gather-sum reads the index and
+    # writes one row a bag (the table, 26 MB, is read from L2)
+    rows = [
+        ("gather-sum bytes/s (index + sums)", (8 + 512 / _BAG) / (pr.gather_ns * 1e-9),
+         spec_peak("hbm_gbps"), None),
+        ("gather-copy bytes/s (row + index)", (512 + 8) / (pr.gather_copy_ns * 1e-9),
+         spec_peak("hbm_gbps"), None),
+        ("stream B/s", pr.stream_bps, spec_peak("hbm_gbps"), ("_HBM_BPS", hybrid._HBM_BPS)),
+        ("D-read B/s", pr.hbm_bps, spec_peak("hbm_gbps"), ("_HBM_BPS", hybrid._HBM_BPS)),
+        ("f32 flop/s", pr.mxu_f32_fps, spec_peak("f32_tflops"),
+         ("_MXU_F32_HIGHEST", hybrid._MXU_F32_HIGHEST)),
+        ("TF32 flop/s", pr.mxu_tf32_fps, spec_peak("tf32_tflops"), None),
+        ("bf16 flop/s", pr.mxu_bf16_fps, spec_peak("bf16_tflops"),
+         ("_MXU_BF16_FACTOR x _MXU_F32_HIGHEST",
+          hybrid._MXU_BF16_FACTOR * hybrid._MXU_F32_HIGHEST)),
+    ]
+    log(f"  (a) probe in {pr.probe_s:.1f}s on {card} (slope fell back for "
+        f"{list(pr.fallbacks)}): gather {pr.gather_ns:.4f} ns a row summed, "
+        f"{pr.gather_copy_ns:.4f} copied out")
+    out = {"gather_ns": pr.gather_ns, "gather_copy_ns": pr.gather_copy_ns,
+           "fallbacks": list(pr.fallbacks), "readings": []}
+    for name, got, peak, fitted in rows:
+        line = f"    {name}: {got:.4g}, {got / peak:.3f} of the spec peak {peak:.4g}"
+        if fitted:
+            line += f"; phase 11's {fitted[0]} {fitted[1]:.4g} (probe / fitted {got / fitted[1]:.3f})"
+        log(line)
+        out["readings"].append({"name": name, "value": got, "peak": peak,
+                                "of_peak": got / peak,
+                                **({"fitted": fitted[1]} if fitted else {})})
+        if not 0 < got <= PEAK_SLACK * peak:
+            fail(f"probe {name} = {got:.4g} is not within {PEAK_SLACK} of the spec peak {peak:.4g}")
+    # the floor's price of a residual edge: its index and weight at the
+    # stream rate; it must lie below the CSR kernel's edge at every width
+    log(f"    _GATHER_NS in use (ops/hybrid.py, the floor's price of a residual edge, "
+        f"{hybrid.RESID_EDGE_BYTES} bytes at {hybrid._STREAM_BPS:.4g} B/s): "
+        f"{hybrid._GATHER_NS:.6f} ns; at this run's stream rate {pr.resid_edge_ns:.6f} "
+        f"(in use / probed {hybrid._GATHER_NS / pr.resid_edge_ns:.3f}); the CSR kernel's "
+        f"edge at H = 43 / 100: {hybrid.csr_edge_ns(43)} / {hybrid.csr_edge_ns(100)} ns")
+    if not 0 < hybrid._GATHER_NS < min(hybrid._CSR_EDGE_NS.values()):
+        fail(f"ops/hybrid.py's _GATHER_NS {hybrid._GATHER_NS} is not below the CSR kernel's edge")
+    out["gather_ns_in_use"] = hybrid._GATHER_NS
+    out["resid_edge_ns"] = pr.resid_edge_ns
+    return out, pr
+
+
+def tooling_and_drivers(args, card, g, dev, pr) -> dict:
+    """Phase 14 (b)-(e) and (g): the bench's variant loop on phase 2's
+    graph, the hyperopt, benchmark_graph and protocol drivers, and
+    tune_allocator's effect, each fatal."""
+    import shutil
+
+    import numpy as np
+
+    from pytextgcn_tpu_torch import bench
+    from pytextgcn_tpu_torch.experiments import benchmark_graph, hyperopt, protocol
+    from pytextgcn_tpu_torch.ops import fused_dual as fd
+    from pytextgcn_tpu_torch.ops import spmm_cuda
+
+    kernel, dual = spmm_cuda.spmm_csr_kernel, fd.fused_dual_kernel
+    out = {}
+
+    # ---- (b) the bench's variants on phase 2's graph
+    t0 = time.perf_counter()
+    os.makedirs(bench.PLAN_CACHE, exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="smoke-", dir=bench.PLAN_CACHE)
+    traces = tempfile.mkdtemp(prefix="smoke-traces-")
+    try:
+        # the floor paths' device busy time, which the floors must not exceed
+        res = bench.bench_scale(g, bench.variants(cache), dev, epochs=BENCH_EPOCHS,
+                                profile_dir=traces, tag="smoke",
+                                profile_names={"hybrid f32", f"hybrid f32 K{bench.EXPLICIT_K}"})
+    except RuntimeError as e:  # a variant's launches differ from its plans'
+        fail(f"bench: {e}")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+        shutil.rmtree(traces, ignore_errors=True)
+    dual_key = {"hybrid f32": "split", "hybrid f32.highest": "f32", "hybrid bf16": "bf16"}
+    for name, per_step in res["launches_per_step"].items():
+        want_csr = 0 if name == "segment f32" else 4
+        want_dual = {}
+        if f"K{bench.EXPLICIT_K}" in name:
+            base = name.split(f" K{bench.EXPLICIT_K}")[0]
+            want_dual = {dual_key[base]: 2 if name.endswith("masked-head") else 4}
+        if per_step["spmm_csr"] != want_csr or (want_dual and per_step["dual"] != want_dual):
+            fail(f"bench {name}: launches a step {per_step}, expected spmm_csr {want_csr}, "
+                 f"dual {want_dual or 'as its plan implies'}")
+    line = bench.headline(g, res, res, pr, dev, {}, [])
+    bad = bench.check_fractions(line)
+    log(f"  (b) bench variants on phase 2's graph in {time.perf_counter() - t0:.1f}s "
+        f"({bench.WARMUP_STEPS} + {bench.TIMING_BLOCKS} x {BENCH_EPOCHS} steps each): "
+        f"step ms {line['step_ms']}; K {line['hybrid_k']}; roofline "
+        f"{line['fraction_of_roofline']} (probed stream {line['fraction_of_roofline_probed']}), "
+        f"floor {line['fraction_of_achievable']} (probed "
+        f"{line['fraction_of_achievable_probed']}; of the device busy time "
+        f"{line.get('fraction_of_achievable_busy')}, probed "
+        f"{line.get('fraction_of_achievable_probed_busy')}; {line['floor_check']}, "
+        f"{line.get('floor_path')}); x_of_gather_floor {line['x_of_gather_floor']}")
+    if line.get("floor_path") and "fraction_of_achievable_busy" not in line:
+        fail(f"bench: no device busy time for the floor path {line['floor_path']}")
+    if bad:
+        fail("bench fractions: " + "; ".join(bad))
+    out["bench"] = {k: line[k] for k in (
+        "step_ms", "step_ms_spread", "hybrid_k", "launches_per_step", "fraction_of_roofline",
+        "fraction_of_roofline_probed", "fraction_of_achievable",
+        "fraction_of_achievable_probed", "floor_check", "x_of_gather_floor", "best_path")}
+    out["bench"].update({k: line.get(k) for k in (
+        "fraction_of_achievable_busy", "fraction_of_achievable_probed_busy")})
+
+    tmp = tempfile.mkdtemp(prefix="smoke14-")
+    try:
+        # ---- (c) hyperopt: a 2-fold grid at 3,000 documents
+        for hierarchy in ("flat", "per-label"):
+            t0 = time.perf_counter()
+            before = kernel.launches
+            rows = hyperopt.main([
+                "--dataset", "synthetic-amazon", "--n-docs", "3000", "--hierarchy", hierarchy,
+                "--k-split", "2", "--epochs", str(HYPEROPT_EPOCHS), "--lrs", "0.05",
+                "--dropouts", "0.5", "--max-dfs", "0.7", "--models", "GCN",
+                "--out", os.path.join(tmp, f"ho_{hierarchy}.csv")])
+            launches = kernel.launches - before
+            # each fold's fit: 4 a step, 2 an evaluation every epoch, 2 more
+            # for the fold's evaluate
+            want = len(rows) * 2 * (6 * HYPEROPT_EPOCHS + 2)
+            f1s = [r["mean f1"] for r in rows]
+            log(f"  (c) hyperopt {hierarchy}, 3,000 docs, 2 folds: {len(rows)} rows in "
+                f"{time.perf_counter() - t0:.1f}s, mean f1 {np.round(f1s, 4).tolist()}; CSR "
+                f"launches {launches} (expected {want})")
+            if not np.isfinite(f1s).all() or launches != want:
+                fail(f"hyperopt {hierarchy}: rows {rows}, launches {launches} != {want}")
+            out[f"hyperopt_{hierarchy}"] = {"rows": len(rows), "launches": launches,
+                                            "seconds": time.perf_counter() - t0}
+
+        # ---- (d) benchmark_graph: native and device at 3,000 documents
+        gb = benchmark_graph.main(["--n-docs", "3000", "--backends", "native", "device",
+                                   "--plan-bench"])
+        log(f"  (d) benchmark_graph, 3,000 docs: "
+            + ", ".join(f"{r['backend']} {r['seconds']:.3f}s" for r in gb["backends"])
+            + f", {gb['backends'][0]['n_edges']} edges, equal: {gb['edges_equal']}; plan K="
+            f"{gb['plan']['k']} cold {gb['plan']['cold_s']:.3f}s, warm "
+            f"{gb['plan']['warm_s']:.3f}s")
+        if not gb["edges_equal"]:
+            fail("benchmark_graph: the backends' edges differ")
+        out["benchmark_graph"] = gb
+
+        # ---- (e) the protocol driver's hybrid flags, 5 epochs on the 50k
+        # corpus, both modes on one build of its graph
+        t0 = time.perf_counter()
+        pgraph = protocol.build_graph("amazon", args.n_docs, verbose=0, device=dev)
+        log(f"  (e) the protocol's amazon graph in {time.perf_counter() - t0:.1f}s: "
+            f"N={pgraph[0].n_nodes} E={pgraph[0].n_edges}")
+        for mode, flags in (("split", ["--hybrid-f32-mode", "split2"]),
+                            ("bf16", ["--pallas-dtype", "bfloat16"])):
+            t0 = time.perf_counter()
+            dual.launches = {}
+            before = kernel.launches
+            prow = protocol.main(["--protocol", "amazon", "--n-docs", str(args.n_docs),
+                                  "--epochs", "5", "--seeds", "42",
+                                  "--hybrid-k", str(bench.EXPLICIT_K), *flags,
+                                  "--out", os.path.join(tmp, "rows.csv"), "--verbose", "0"],
+                                 graph=pgraph)
+            # 4 a step, 2 an evaluation (every epoch at 5 epochs), 2 more
+            want = 4 * 5 + 2 * 5 + 2
+            got, csr = dict(dual.launches), kernel.launches - before
+            log(f"  (e) protocol --hybrid-k {bench.EXPLICIT_K} {' '.join(flags)}, 5 epochs in "
+                f"{time.perf_counter() - t0:.1f}s: dual launches {got}, CSR (residual) {csr} "
+                f"(expected {want} each); f1 {prow[0]['f1_macro']:.4f}")
+            if got != {mode: want} or csr != want or not np.isfinite(prow[0]["final_loss"]):
+                fail(f"protocol {mode}: dual {got}, CSR {csr}, expected {want}")
+            out[f"protocol_{mode}"] = {"dual": got, "csr": csr}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- (g) tune_allocator on and off, each in a process of its own
+    out["allocator"] = {}
+    for name, extra in (("tuned", {}), ("untuned", {"PYTEXTGCN_NO_MALLOPT": "1"})):
+        env = {k: v for k, v in os.environ.items() if k != "PYTEXTGCN_NO_MALLOPT"}
+        env.update(extra, PYTHONPATH=ROOT)
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--allocator-timing",
+                            "--n-docs", str(args.n_docs)],
+                           capture_output=True, text=True, timeout=900, env=env)
+        if r.returncode != 0:
+            log(r.stderr[-4000:])
+            fail(f"allocator timing ({name}) failed")
+        rec = json.loads(r.stdout.strip().splitlines()[-1])
+        if rec["tuned"] != (name == "tuned"):
+            fail(f"allocator timing ({name}): tune_allocator returned {rec['tuned']}")
+        out["allocator"][name] = rec
+        log(f"  (g) {name} (mallopt {'on' if rec['tuned'] else 'off'}): host graph build "
+            f"{rec['graph_s']:.2f}s, CSR plans {rec['plan_s']:.2f}s")
+    return out
+
+
+def allocator_timing(n_docs: int) -> int:
+    """Phase 14 (g)'s child: the host graph build and the CSR plan build of
+    the 50k-doc synthetic-amazon graph, timed; prints one JSON line with
+    whether ``tune_allocator`` applied (``PYTEXTGCN_NO_MALLOPT``)."""
+    import torch
+
+    from pytextgcn_tpu_torch import utils
+    from pytextgcn_tpu_torch.config import parse_config
+    from pytextgcn_tpu_torch.experiments import common
+    from pytextgcn_tpu_torch.ops import NormAdj
+
+    cfg = parse_config(["--dataset", "synthetic-amazon", "--n-docs", str(n_docs)])
+    docs, labels, test_idx, val_idx = common.load_corpus(cfg)
+    t0 = time.perf_counter()
+    g = common.build_graph(cfg.graph, docs, labels[0], test_idx, val_idx, verbose=0,
+                           device="cuda")
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    NormAdj.from_graph(g, use_pallas=True, device="cuda")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    print(json.dumps({"tuned": utils._tuned, "graph_s": graph_s, "plan_s": plan_s,
+                      "n_edges": g.n_edges}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=50_000)
@@ -1657,6 +1905,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default=None,
                     help="directory for torch.profiler tables of 5 train steps on the CSR "
                          "kernel path, on the hybrid path and on each phase-10 path")
+    ap.add_argument("--allocator-timing", action="store_true",
+                    help="only the graph and plan builds, timed (phase 14)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "pytextgcn_tpu_torch")):
@@ -1666,6 +1916,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA device")
     sys.path.insert(0, ROOT)
+    if args.allocator_timing:
+        return allocator_timing(args.n_docs)
     import numpy as np
 
     from pytextgcn_tpu_torch.build.native_bridge import load_native
@@ -1713,7 +1965,7 @@ def main(argv=None) -> int:
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/13] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
+    log(f"[1/14] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
         f"kernel, four of the dual kernel) and the native library in "
         f"{time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
@@ -1734,7 +1986,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     g, n_classes = flat.build_graph(cfg)
     n, e = g.n_nodes, g.n_edges
-    log(f"[2/13] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
+    log(f"[2/14] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
         f"(vocab {g.n_vocab}, docs {g.n_docs}), {n_classes} classes")
     widths = (hidden, n_classes)
 
@@ -1742,7 +1994,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     adj = NormAdj.from_graph(g, use_pallas=True, device=dev)
     plan = adj.plan
-    log(f"[3/13] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
+    log(f"[3/14] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
         f"segments, {plan.fwd.n_partials} partial rows (fwd); checks:")
     gen = torch.Generator(device=dev).manual_seed(0)
     f32_errs, bf16_errs = [], []
@@ -1803,7 +2055,7 @@ def main(argv=None) -> int:
     evals = sum("val_f1" in rec for rec in hist) + 1  # + evaluate()
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
-    log(f"[4/13] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
+    log(f"[4/14] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
         f"passes, kernel launches {launches} (expected {expected}); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; test acc {res['accuracy']:.4f}, "
         f"macro-F1 {res['f1_macro']:.4f}; peak memory {peak_gb:.2f} GB")
@@ -1858,14 +2110,14 @@ def main(argv=None) -> int:
     plan_s = time.perf_counter() - t0
     k = hplan.k
     d_bytes = 2 * hplan.d_full.numel() * hplan.d_full.element_size()
-    log(f"[5/13] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
+    log(f"[5/14] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
         f"pair of {d_bytes / 1e6:.1f} MB), {hplan.n_resid} residual edges "
         f"({hplan.n_resid / e:.1%} of E) on the CSR kernel")
     if hplan.d_lo is None or tuple(hplan.d_full.shape) != (n, k) or k != HOT_K:
         fail(f"hybrid plan: K={k}, D {tuple(hplan.d_full.shape)}, split {hplan.d_lo is not None}")
 
     # ------------------------------------------------------------ 6. dual kernel
-    log("[6/13] the dual kernel against its plain version (tolerance relative to "
+    log("[6/14] the dual kernel against its plain version (tolerance relative to "
         "|D| @ |xh| and |D|^T @ |x|):")
     pair = (hplan.d_full, hplan.d_lo)
     d32 = pair[0].float() + pair[1].float()  # the f32 D of the f32 variant
@@ -1937,7 +2189,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 7. hybrid SpMM
-    log(f"[7/13] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
+    log(f"[7/14] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
         f"of |A_hat| @ |x|):")
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev, requires_grad=True)
@@ -1975,7 +2227,7 @@ def main(argv=None) -> int:
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
     path_launches = {"split": hcounts["dual"].get("split", 0)}
-    log(f"[8/13] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
+    log(f"[8/14] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
         f"{evals} forward-only passes; dual kernel launches {hcounts['dual']}, CSR kernel "
         f"launches {hcounts['csr']} (expected {expected} each); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; test acc {hres['accuracy']:.4f}, macro-F1 {hres['f1_macro']:.4f}; "
@@ -2024,7 +2276,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 9. times
-    log(f"[9/13] times on {card} (CUDA events, warm, per launch):")
+    log(f"[9/14] times on {card} (CUDA events, warm, per launch):")
     by_width = []
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev)
@@ -2217,6 +2469,12 @@ def main(argv=None) -> int:
         args, card, cfg, g, n_classes, adj, counters, gen, dev)
     f32_errs += slice10_errs
 
+    # ------------------------------------------------------------ 14. tooling, drivers
+    log("[14/14] tooling and drivers:")
+    probe_out, pr = probe_against_spec(card, dev)
+    slice11 = tooling_and_drivers(args, card, g, dev, pr)
+    slice11["probe"] = probe_out
+
     def dual_entry(key, replaces, path):
         rows = dual_rows[key]
         avg = lambda name: sum(r[name] for r in rows) / len(rows)
@@ -2270,6 +2528,7 @@ def main(argv=None) -> int:
         "mlp_and_last_options": last,
         "subgraph_plans": subgraph_rows,
         "counting_and_minibatching": slice10,
+        "tooling_and_drivers": slice11,
     },
         {**dual_entry("split", "pytextgcn_tpu/ops/fused_dual.py:185",
                       f"flat.run --train-hybrid-k {HOT_K} (f32 split2, the default), "

@@ -17,6 +17,11 @@ and raise if there is no GPU (see :func:`utils.resolve_device`).
 
 __version__ = "0.1.0"
 
+from .utils import tune_allocator
+
+tune_allocator()  # see utils.py: first-touch page faults dominate host-side
+# graph and plan builds on lazily backed memory unless big buffers stay on the heap
+
 from .build.text2graph import Text2Graph
 from .core.graph import TextGraph
 

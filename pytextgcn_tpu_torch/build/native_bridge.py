@@ -3,7 +3,8 @@
 Compiles ``native/graphbuilder.cpp`` and ``native/vectorizer.cpp`` (copies
 of the JAX package's kernels) with ``g++`` at first use into the package's
 build directory (``_build/native``, listed in .gitignore), and exposes them
-through a plain C ABI + ctypes.
+through a plain C ABI + ctypes. ``build_sanitized`` makes ASan/UBSan and
+TSan builds of the same sources beside it.
 """
 
 from __future__ import annotations
@@ -17,37 +18,90 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..utils import BUILD_DIR
-
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [
     os.path.join(_HERE, "native", "graphbuilder.cpp"),
     os.path.join(_HERE, "native", "vectorizer.cpp"),
 ]
-_OUT_DIR = os.path.join(BUILD_DIR, "native")
+# the package's build directory (utils.BUILD_DIR), spelled out so that this
+# module imports nothing of the package: the sanitizer worker loads it
+# alone, without torch
+_OUT_DIR = os.path.join(os.path.dirname(_HERE), "_build", "native")
 _SO = os.path.join(_OUT_DIR, "libtgnative.so")
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def _build() -> None:
+# sanitizer builds: the threaded counting kernel is the kind of shared-state
+# code ASan/UBSan and TSan exist for; tests/test_torch_sanitizers.py runs
+# its golden and thread-count checks against these builds in subprocesses
+# with the runtime preloaded
+_SAN_FLAGS = {
+    None: ["-O3", "-march=native"],
+    "asan": ["-O1", "-g", "-fsanitize=address,undefined", "-fno-sanitize-recover=all"],
+    "tsan": ["-O1", "-g", "-fsanitize=thread"],
+}
+
+
+def _san_so(sanitize: Optional[str]) -> str:
+    suffix = "" if sanitize is None else f"_{sanitize}"
+    return os.path.join(_OUT_DIR, f"libtgnative{suffix}.so")
+
+
+def _build(sanitize: Optional[str] = None) -> str:
     """Compile into a temporary file and rename it into place, so processes
     building at the same time never load a half-written library."""
+    out = _san_so(sanitize)
     os.makedirs(_OUT_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_OUT_DIR)
     os.close(fd)
     try:
-        cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
+        cmd = ["g++", *_SAN_FLAGS[sanitize], "-std=c++17", "-fPIC", "-shared",
                "-pthread", *_SRCS, "-o", tmp]
         subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(tmp, _SO)
+        os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+    return out
+
+
+def _stale(out: str) -> bool:
+    return not os.path.exists(out) or any(
+        os.path.getmtime(out) < os.path.getmtime(s) for s in _SRCS)
+
+
+def build_sanitized(sanitize: str) -> str:
+    """Build (if stale) and return the path of a sanitizer-instrumented
+    variant of the native library ('asan' = address + undefined behaviour,
+    'tsan' = thread)."""
+    out = _san_so(sanitize)
+    with _LOCK:
+        if _stale(out):
+            _build(sanitize)
+    return out
+
+
+def sanitizer_runtime(sanitize: str) -> str:
+    """Path of the sanitizer runtime to LD_PRELOAD into the host process."""
+    name = {"asan": "libasan.so", "tsan": "libtsan.so"}[sanitize]
+    out = subprocess.run(["g++", f"-print-file-name={name}"], check=True,
+                         capture_output=True, text=True)
+    return out.stdout.strip()
 
 
 def declare_api(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Attach the C ABI signatures to a loaded library handle."""
+    lib.tg_sliding_window.restype = ctypes.c_uint64
+    lib.tg_sliding_window.argtypes = [
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_uint32),
+    ]
     lib.tg_word_word_edges.restype = ctypes.c_int32
     lib.tg_word_word_edges.argtypes = [
         ctypes.POINTER(ctypes.c_int32),
@@ -97,10 +151,7 @@ def load_native() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        stale = not os.path.exists(_SO) or any(
-            os.path.getmtime(_SO) < os.path.getmtime(s) for s in _SRCS
-        )
-        if stale:
+        if _stale(_SO):
             _build()
         _LIB = declare_api(ctypes.CDLL(_SO))
         return _LIB
@@ -196,6 +247,27 @@ def native_encode(docs, vocabulary_sorted_terms, max_length=None):
     finally:
         lib.tg_free(tokens_p)
     return out
+
+
+def native_sliding_window_counts(
+    tokens: np.ndarray, n_vocab: int, window_size: int, n_threads: int = 0
+) -> Tuple[np.ndarray, int]:
+    """Packed triangular pair counts and the window count from the C++
+    kernel (the reference's test hook ``sliding_window_tester``)."""
+    lib = load_native()
+    tokens = np.ascontiguousarray(tokens, dtype=np.int32)
+    n_docs, seq_len = tokens.shape
+    cij = np.zeros((n_vocab * (n_vocab + 1)) // 2, dtype=np.uint32)
+    n_windows = lib.tg_sliding_window(
+        tokens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n_docs,
+        seq_len,
+        n_vocab,
+        window_size,
+        n_threads,
+        cij.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+    )
+    return cij, int(n_windows)
 
 
 def native_word_word_edges(

@@ -11,7 +11,12 @@ results.csv schema with category ``torch-cuda`` (``torch-cpu`` for a run on
 the CPU). ``--masked-head`` (flat:
 the train rows' head, ops/restricted.py) and ``--ep`` (per-label: the
 batched ensemble, as ``experiments/protocol_parity.py --ep``) tag their
-rows' hierarchy ``flat masked-head`` and ``per-label ep``. ``--model mlp``
+rows' hierarchy ``flat masked-head`` and ``per-label ep``. ``--hybrid-k``,
+``--hybrid-f32-mode``, ``--pallas-dtype`` and ``--plan-cache`` take the
+meanings of ``experiments/protocol_parity.py``'s flags; rows of the f32
+'split2' hybrid and of bf16 are tagged ``torch-cuda-split2`` and
+``torch-cuda-bf16``, as the JAX side tags ``jax-split2`` and
+``jax-bf16``. ``--model mlp``
 is the TF-IDF + MLP baseline of ``experiments/mlp_parity.py`` (no graph: a
 seeded 10% validation draw, the fixed test block, the finest level, 500
 epochs with the patience stop), its first layer on the CSR kernel.
@@ -25,6 +30,8 @@ epochs with the patience stop), its first layer on the CSR kernel.
     python -m pytextgcn_tpu_torch.experiments.protocol --protocol amazon \
         --hierarchy perlabel --ep
     python -m pytextgcn_tpu_torch.experiments.protocol --protocol dbpedia --model mlp
+    python -m pytextgcn_tpu_torch.experiments.protocol --protocol amazon \
+        --hybrid-k 4096 --hybrid-f32-mode split2     # or --pallas-dtype bfloat16
 """
 
 from __future__ import annotations
@@ -64,6 +71,25 @@ PROTOCOLS = {
 }
 CATEGORY = {"cuda": "torch-cuda", "cpu": "torch-cpu"}  # rows of a CPU run say so
 HIERARCHY_NAMES = {"flat": "flat", "perlevel": "per-level", "perlabel": "per-label"}
+
+
+def category(device_type: str, hybrid_k, f32_mode: str, pallas_dtype: str) -> str:
+    """The rows' category: the device's, and for the numeric paths other
+    than exact f32 a suffix, as ``protocol_parity.py::jax_category`` tags
+    the JAX side: bf16 aggregation, or the hybrid's f32 'split2' mode."""
+    base = CATEGORY[device_type]
+    if pallas_dtype == "bfloat16":
+        return base + "-bf16"
+    if hybrid_k is not None and f32_mode == "split2":
+        return base + "-split2"
+    return base
+
+
+def hybrid_k_flag(value: str):
+    """``--hybrid-k``: 'off' / 'none' -> None, 'auto', or an int."""
+    if value in ("off", "none"):
+        return None
+    return "auto" if value == "auto" else int(value)
 
 
 def build_graph(protocol: str, n_docs: int, verbose: int = 1, hierarchy: str = "flat",
@@ -122,6 +148,14 @@ def mlp_splits(corpus, seed: int):
     return tfidf_splits(docs, level_labels, test_idx, val_idx)
 
 
+def aggregation_kwargs(args, device) -> dict:
+    """The Trainer's aggregation settings from the hybrid flags (the CSR
+    kernel in exact f32 without them)."""
+    return {"device": device, "hybrid_k": hybrid_k_flag(args.hybrid_k),
+            "hybrid_f32_mode": args.hybrid_f32_mode, "pallas_dtype": args.pallas_dtype,
+            "plan_cache": args.plan_cache or None}
+
+
 def run_seed(args, p, gs, level_labels, seed, device, prev):
     """One seed of the configuration. Returns (metrics, a trainer whose
     operator the next seed may adopt, or None)."""
@@ -134,8 +168,8 @@ def run_seed(args, p, gs, level_labels, seed, device, prev):
     factory = model_factory(args.model, p, torch.Generator().manual_seed(seed))
     if args.hierarchy == "flat":
         n_classes = int(np.max(gs.y)) + 1
-        tr = Trainer(factory(gs.in_dim, n_classes), lr=p["lr"], seed=seed, device=device,
-                     masked_head=args.masked_head)
+        tr = Trainer(factory(gs.in_dim, n_classes), lr=p["lr"], seed=seed,
+                     masked_head=args.masked_head, **aggregation_kwargs(args, device))
         if prev is not None:
             # remask only redraws masks: the operator is the same
             tr.share_adjacency(prev)
@@ -144,7 +178,7 @@ def run_seed(args, p, gs, level_labels, seed, device, prev):
         m = tr.evaluate(gs, n_classes=n_classes)
         m["final_loss"] = hist[-1]["loss"]
         return m, tr
-    tkw = {"device": device}
+    tkw = aggregation_kwargs(args, device)
     if args.hierarchy == "perlevel":
         res = train_per_level(gs, level_labels, factory, lr=p["lr"], epochs=p["epochs"],
                               seed=seed, verbose=args.verbose, trainer_kwargs=tkw)
@@ -158,7 +192,11 @@ def run_seed(args, p, gs, level_labels, seed, device, prev):
     return {k: m[k] for k in ("accuracy", "f1_macro")}, None
 
 
-def main(argv=None):
+def main(argv=None, graph=None):
+    """Runs the configuration ``argv`` names. ``graph``: the
+    ``(graph, level_labels, n_train, n_val)`` of :func:`build_graph` for this
+    protocol, hierarchy and size, to run several configurations on one
+    build; None builds it."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--protocol", choices=list(PROTOCOLS), default="amazon")
     ap.add_argument("--model", choices=["gcn", "egcn", "jk", "mlp"], default="gcn")
@@ -173,14 +211,32 @@ def main(argv=None):
                     help="flat: aggregate the final layer into the train rows only")
     ap.add_argument("--ep", action="store_true",
                     help="per-label: train the members in one batched step")
+    ap.add_argument("--hybrid-k", default="off",
+                    help="'off' | 'auto' | int: the hybrid SpMM decomposition's hot-set size")
+    ap.add_argument("--hybrid-f32-mode", choices=["highest", "split2"], default="highest",
+                    help="the hybrid's f32 dense pair: 'highest' (exact f32) or 'split2' (D "
+                         "as a bf16 hi/lo pair, 3 passes); 'split2' rows are tagged "
+                         "torch-cuda-split2")
+    ap.add_argument("--pallas-dtype", choices=["float32", "bfloat16"], default="float32",
+                    help="the aggregation's compute dtype (bfloat16 rows are tagged "
+                         "torch-cuda-bf16; parameters and optimizer stay f32)")
+    ap.add_argument("--plan-cache", default="",
+                    help="directory of persisted plans (ops/plan_cache.py; '' = none)")
     ap.add_argument("--verbose", type=int, default=1)
     args = ap.parse_args(argv)
+    try:
+        hybrid_k_flag(args.hybrid_k)
+    except ValueError:
+        ap.error(f"--hybrid-k takes off, auto or an integer, got {args.hybrid_k!r}")
     if args.masked_head and args.hierarchy != "flat":
         ap.error("--masked-head runs the flat protocol only")
     if args.ep and args.hierarchy != "perlabel":
         ap.error("--ep runs the per-label protocol only")
     if args.model == "mlp" and (args.hierarchy != "flat" or args.masked_head):
         ap.error("--model mlp runs the flat protocol only")
+    if args.model == "mlp" and (hybrid_k_flag(args.hybrid_k) is not None
+                                or args.pallas_dtype != "float32"):
+        ap.error("--model mlp has no graph operator: --hybrid-k and --pallas-dtype do not apply")
 
     device = resolve_device(args.device)
     exact_f32()
@@ -193,6 +249,11 @@ def main(argv=None):
     if args.model == "mlp":
         corpus = protocol_corpus(args.protocol, n_docs=n_docs)
         g, level_labels, n_train, n_val = None, None, corpus[2], corpus[3]
+    elif graph is not None:
+        g, level_labels, n_train, n_val = graph
+        if len(level_labels[0]) != n_docs:
+            raise ValueError(f"the graph given holds {len(level_labels[0])} documents, the "
+                             f"configuration {n_docs}")
     else:
         g, level_labels, n_train, n_val = build_graph(args.protocol, n_docs, args.verbose,
                                                       hierarchy=args.hierarchy, device=device)
@@ -218,13 +279,17 @@ def main(argv=None):
               + ")", flush=True)
         append_result(args.out, seed=seed, model=args.model.upper(), hierarchy=hier,
                       f1_macro=m["f1_macro"], accuracy=m["accuracy"],
-                      dataset=f"synthetic-{args.protocol}", category=CATEGORY[device.type])
+                      dataset=f"synthetic-{args.protocol}",
+                      category=category(device.type, hybrid_k_flag(args.hybrid_k),
+                                        args.hybrid_f32_mode, args.pallas_dtype))
     accs = [m["accuracy"] for m in rows]
     f1s = [m["f1_macro"] for m in rows]
     print(json.dumps({
         "protocol": args.protocol, "model": args.model, "hierarchy": hier,
         "n_docs": n_docs, "n_nodes": g.n_nodes if g is not None else None,
         "n_edges": g.n_edges if g is not None else None, "epochs": p["epochs"],
+        "category": category(device.type, hybrid_k_flag(args.hybrid_k), args.hybrid_f32_mode,
+                             args.pallas_dtype),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "summary": {"accuracy": [float(np.mean(accs)), float(np.std(accs))],
                     "f1_macro": [float(np.mean(f1s)), float(np.std(f1s))]},

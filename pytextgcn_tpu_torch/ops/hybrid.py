@@ -89,6 +89,18 @@ _HYBRID_NH_NS = 0.0212
 # bump when the constants above change enough to move choose_hot_k's
 # choice: the plan cache folds it into the keys of 'auto' plans
 COST_MODEL_VERSION = 1
+# The floor's price of a residual edge: the bytes that the edge must read
+# from HBM whatever the caches hold, its source index and its weight, at
+# the card's streaming rate as ops/probe.py measures it (stream_bps,
+# 2.789e12 B/s, read by chip_smoke.py phase 14 (a) on an NVIDIA H100 80GB
+# HBM3 at a 700 W power limit). The edge's row of x is not charged: the CSR
+# kernel runs an edge at H = 100 in 0.044 ns (_CSR_EDGE_NS), less than a
+# 400-byte row takes at that rate (0.143 ns), because the rows come from
+# cache (x is 31 MB on the 50k-document graph, L2 holds 50 MB). The floor
+# leaves out _HYBRID_NH_NS, which is an observed overhead, not a floor.
+RESID_EDGE_BYTES = 8
+_STREAM_BPS = 2.789e12
+_GATHER_NS = RESID_EDGE_BYTES / _STREAM_BPS * 1e9
 
 
 def _by_width(table: dict, h: int) -> float:
@@ -125,6 +137,15 @@ def _predict_cost_ns(n_nodes: int, n_edges: int, resid_edges: float, k: int, h: 
     D's stream and pay the rest each."""
     if edge_ns is None:
         edge_ns = csr_edge_ns(h)
+    dense_ns = _dense_ns(n_nodes, k, h, itemsize, d_reads, batch, dense_split)
+    fixed_ns = _HYBRID_NH_NS * n_nodes * h * batch
+    return dense_ns + fixed_ns + resid_edges * edge_ns * batch
+
+
+def _dense_ns(n_nodes: int, k: int, h: int, itemsize: int, d_reads: int, batch: int,
+              dense_split: bool) -> float:
+    """The dense pair's modeled ns: the larger of its bytes and its flops
+    time, plus the ``K x K`` correction."""
     dense_bytes = (d_reads * n_nodes * k + k * k) * itemsize
     dense_flops = 2 * (2 * n_nodes * k) * h * batch
     kk_ns = 2 * k * k * h * batch / _MXU_F32_HIGHEST * 1e9
@@ -134,9 +155,20 @@ def _predict_cost_ns(n_nodes: int, n_edges: int, resid_edges: float, k: int, h: 
         mxu = _MXU_F32_HIGHEST
     else:
         mxu = _MXU_BF16_FACTOR * _MXU_F32_HIGHEST
-    dense_ns = max(dense_bytes / _HBM_BPS, dense_flops / mxu) * 1e9 + kk_ns
-    fixed_ns = _HYBRID_NH_NS * n_nodes * h * batch
-    return dense_ns + fixed_ns + resid_edges * edge_ns * batch
+    return max(dense_bytes / _HBM_BPS, dense_flops / mxu) * 1e9 + kk_ns
+
+
+def plan_floor_ns(plan: "HybridPlan", h: int) -> float:
+    """The floor of one application of ``plan`` at width ``h``, the JAX
+    package's form: the dense pair at zero residual plus the residual's
+    edges at ``_GATHER_NS`` each (no ``_HYBRID_NH_NS`` term). D streams
+    once in the dual kernels (split, bf16, f32 fused), twice in two
+    ``torch.mm``."""
+    split = plan.d_lo is not None
+    itemsize = _COMPUTE_DTYPES[plan.compute_dtype].itemsize
+    d_reads = 1 if (plan.fused or split or itemsize == 2) else 2
+    return (_dense_ns(plan.n_nodes, plan.k, h, itemsize, d_reads, 1, split)
+            + plan.n_resid * _GATHER_NS)
 
 
 def choose_hot_k(src, n_nodes: int, h: int = 128, itemsize: int = 4,
@@ -205,6 +237,7 @@ class HybridPlan:
              instead of two ``torch.mm``.
     n_resid: residual (cold-cold) edge count.
     predicted_spmm_ns: the cost model's price of one application.
+    floor_spmm_ns: its floor at the build's width (:func:`plan_floor_ns`).
     """
 
     hot_ids: torch.Tensor
@@ -221,6 +254,7 @@ class HybridPlan:
     seg_dst: Optional[torch.Tensor] = None
     seg_w: Optional[torch.Tensor] = None
     predicted_spmm_ns: float = 0.0
+    floor_spmm_ns: float = 0.0
 
 
 def check_weight_symmetric(src, dst, w, sel=None):
@@ -387,12 +421,14 @@ def build_hybrid_plan(
     resid_units = n_resid * (_PAD_FACTOR if use_csr else segment_edge_ns(h_hint) / edge_ns)
     predicted = _predict_cost_ns(n_nodes, len(src), resid_units, k, h_hint, itemsize,
                                  d_reads=d_reads, dense_split=dense_split, edge_ns=edge_ns)
-    return HybridPlan(
+    plan = HybridPlan(
         hot_ids=torch.as_tensor(hot_ids, device=device), d_full=d_full, d_lo=d_lo,
         a_hh=a_hh, res=res, n_nodes=n_nodes, k=k, compute_dtype=compute_dtype,
         fused=bool(fused), n_resid=n_resid, predicted_spmm_ns=float(predicted),
         **dict(zip(("seg_src", "seg_dst", "seg_w"), seg or (None, None, None))),
     )
+    plan.floor_spmm_ns = plan_floor_ns(plan, h_hint)
+    return plan
 
 
 def hot_set(src, n_nodes: int, k: int) -> np.ndarray:

@@ -31,7 +31,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from .hybrid import COST_MODEL_VERSION, HybridPlan, dense_blocks
+from .hybrid import COST_MODEL_VERSION, HybridPlan, dense_blocks, plan_floor_ns
 from .spmm_cuda import CsrPlan, SpmmPlan
 
 _FORMAT_VERSION = 1
@@ -117,10 +117,12 @@ def save_plan(cache_dir: str, key: str, plan: Union[SpmmPlan, HybridPlan]) -> st
     return path
 
 
-def load_plan(cache_dir: str, key: str, src, dst, norm_w,
-              device: torch.device) -> Optional[Union[SpmmPlan, HybridPlan]]:
+def load_plan(cache_dir: str, key: str, src, dst, norm_w, device: torch.device,
+              h_hint: int = 128) -> Optional[Union[SpmmPlan, HybridPlan]]:
     """The plan saved under ``key`` on ``device`` (a hybrid plan's dense
-    block rebuilt from the normalized edges), or None on a miss."""
+    block rebuilt from the normalized edges, its floor recomputed at
+    ``h_hint`` from the stored fields, so the file format stays), or None
+    on a miss."""
     path = _path(cache_dir, key)
     if not os.path.exists(path):
         return None
@@ -137,10 +139,12 @@ def load_plan(cache_dir: str, key: str, src, dst, norm_w,
     d_full, d_lo, a_hh = dense_blocks(
         np.asarray(src, np.int64), np.asarray(dst, np.int64),
         np.asarray(norm_w, np.float32), n_nodes, hot_ids, compute_dtype, bool(split), device)
-    return HybridPlan(hot_ids=torch.as_tensor(hot_ids, device=device), d_full=d_full,
+    plan = HybridPlan(hot_ids=torch.as_tensor(hot_ids, device=device), d_full=d_full,
                       d_lo=d_lo, a_hh=a_hh, res=res, n_nodes=n_nodes, k=k,
                       compute_dtype=compute_dtype, fused=bool(fused), n_resid=n_resid,
                       predicted_spmm_ns=predicted, **seg)
+    plan.floor_spmm_ns = plan_floor_ns(plan, h_hint)
+    return plan
 
 
 def load_or_build(cache_dir: Optional[str], g, src, dst, norm_w, device: torch.device,
@@ -155,7 +159,8 @@ def load_or_build(cache_dir: Optional[str], g, src, dst, norm_w, device: torch.d
     fp = graph_fingerprint(np.asarray(g.edge_src), np.asarray(g.edge_dst),
                            np.asarray(g.edge_w), g.n_nodes)
     key = plan_key(fp, **params)
-    plan = load_plan(cache_dir, key, src, dst, norm_w, device)
+    plan = load_plan(cache_dir, key, src, dst, norm_w, device,
+                     h_hint=params.get("h_hint", 128))
     if plan is None:
         plan = build()
         if plan is not None:

@@ -38,6 +38,7 @@ import torch
 
 from ..core.graph import TextGraph, gcn_normalize_np
 from ..utils import resolve_device
+from . import hybrid
 from .hybrid import (csr_edge_ns, dense_block_device, dense_block_host, hot_set,
                      segment_arrays, segment_edge_ns, segment_sum)
 from .spmm_cuda import _COMPUTE_DTYPES, SpmmPlan, build_csr_plan, spmm_plan
@@ -64,6 +65,11 @@ class RestrictedAdj:
                restricted edges (CSR body) or the src-cold ones (hybrid).
     seg_src / seg_dst / seg_w: the same edges for the segment path, with
                ``seg_dst`` local to ``rows``.
+    n_resid:   the restricted edges outside the hot block (all of them
+               without one).
+    floor_spmm_ns: the JAX package's floor of one application: the
+               ``[M, K]`` slab at ``_HBM_BPS`` plus ``n_resid`` edges at
+               ``_GATHER_NS`` each (ops/hybrid.py).
     """
 
     rows: torch.Tensor
@@ -79,6 +85,8 @@ class RestrictedAdj:
     seg_w: Optional[torch.Tensor] = None
     compute_dtype: str = "float32"
     n_edges: int = 0
+    n_resid: int = 0
+    floor_spmm_ns: float = 0.0
 
 
 def choose_restricted_k(r_src, n_nodes: int, m: int, h: int = 128, itemsize: int = 4,
@@ -159,6 +167,7 @@ def build_restricted_adj(
 
     body = {}
     k = 0
+    n_resid = int(r_src.shape[0])
     if hot_k:
         k = max(1, int(min(hot_k, n)))
         if k >= 128:
@@ -175,7 +184,8 @@ def build_restricted_adj(
         body.update(hot_ids=torch.as_tensor(hot, device=device),
                     d_rows=d32.to(_COMPUTE_DTYPES[compute_dtype]))
         csel = ~hsel
-        if csel.any():
+        n_resid = int(csel.sum())
+        if n_resid:
             use_csr = resid_mode == "pallas" or (
                 resid_mode == "auto" and csr_edge_ns(h_hint) < segment_edge_ns(h_hint))
             cold = (r_src[csel], r_dst[csel], r_w[csel])
@@ -188,11 +198,12 @@ def build_restricted_adj(
     else:
         body.update(segment(r_src, r_dst, r_w))
 
+    floor = m * k * itemsize / hybrid._HBM_BPS * 1e9 + n_resid * hybrid._GATHER_NS
     return RestrictedAdj(
         rows=torch.as_tensor(rows, device=device),
         self_rows=torch.as_tensor(self_w[rows], dtype=torch.float32, device=device),
         n_nodes=n, m=m, k=k, compute_dtype=compute_dtype, n_edges=int(r_src.shape[0]),
-        **body,
+        n_resid=n_resid, floor_spmm_ns=float(floor), **body,
     )
 
 

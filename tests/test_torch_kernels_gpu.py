@@ -779,3 +779,52 @@ def test_minibatch_training_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(hists[1], hists[0], rtol=1e-5, atol=1e-6)
     for a, b in zip(params[1], params[0]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------- the probe and the bench
+from pytextgcn_tpu_torch import bench  # noqa: E402
+
+
+def test_probe_readings_within_the_spec_peaks(cuda):
+    from pytextgcn_tpu_torch.ops.probe import _BAG, probe_chip
+    from pytextgcn_tpu_torch.train.profiling import H100_PEAK
+
+    pr = probe_chip(device=cuda)
+    hbm = H100_PEAK["hbm_gbps"] * 1e9
+    readings = [
+        ((8 + 512 / _BAG) / (pr.gather_ns * 1e-9), hbm),  # index + sums of the gather-sum
+        ((512 + 8) / (pr.gather_copy_ns * 1e-9), hbm),  # rows written + index read
+        (pr.stream_bps, hbm), (pr.hbm_bps, hbm),
+        (pr.mxu_f32_fps, H100_PEAK["f32_tflops"] * 1e12),
+        (pr.mxu_tf32_fps, H100_PEAK["tf32_tflops"] * 1e12),
+        (pr.mxu_bf16_fps, H100_PEAK["bf16_tflops"] * 1e12),
+    ]
+    for got, peak in readings:
+        assert 0 < got <= 1.05 * peak, (got, peak)
+    assert pr.mxu_f32_fps < pr.mxu_tf32_fps < pr.mxu_bf16_fps
+    assert pr.gather_ns < pr.gather_copy_ns
+    assert pr.device == torch.cuda.get_device_name(cuda)
+
+
+@pytest.fixture(scope="module")
+def bench_graph():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    # large enough that K = 4096 leaves a residual
+    return bench.build_graph(4000, device="cuda")
+
+
+_VARIANTS = bench.variants(None)
+
+
+@pytest.mark.parametrize("name,kw", _VARIANTS, ids=[n for n, _ in _VARIANTS])
+def test_bench_variant_launches_what_its_plans_imply(cuda, bench_graph, name, kw):
+    res = bench.bench_scale(bench_graph, [(name, kw)], cuda, epochs=2)  # raises on a mismatch
+    per_step = res["launches_per_step"][name]
+    assert per_step == res["expected_launches"][name]
+    assert per_step["spmm_csr"] == (0 if name == "segment f32" else 4)
+    if f"K{bench.EXPLICIT_K}" in name:
+        key = {"hybrid f32": "split", "hybrid f32.highest": "f32", "hybrid bf16": "bf16"}[
+            name.split(" K")[0]]
+        assert per_step["dual"] == {key: 2 if name.endswith("masked-head") else 4}
+    assert np.isfinite(res["loss"][name]) and res["step_s"][name] > 0
