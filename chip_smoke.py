@@ -3,9 +3,11 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py                      # the full check, ~4 min
+    python3 chip_smoke.py                      # the full check, ~8 min
     python3 chip_smoke.py --profile OUT_DIR    # also torch.profiler tables of the
                                                # CSR and hybrid train steps
+    python3 chip_smoke.py --nccl-ranks 4       # on 4 cards: only phase 15's two
+                                               # partitions over NCCL, a rank a card
 
 Phases, each fatal (exit code 1, no result line) when it fails:
 
@@ -147,6 +149,21 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    (``--allocator-timing``). (f), compute-sanitizer over the kernels, is
    left out: the card's machine ships the tool, and it answers "Device not
    supported" for the card (ROADMAP.md).
+15. graph-partitioned training (``parallel/``) on phase 2's graph, from
+   phase 9's initial parameters, ``SHARDED_EPOCHS`` epochs a run: (a) a
+   group of one over NCCL on the card, '--train-sharding allgather' and
+   'halo', each with its CSR launches exact and its losses within 1e-5 of
+   the single-device CSR path's; (b) two ranks sharing ``cuda:0`` over gloo
+   (``torch.multiprocessing``; the halo's blocks through host memory, as
+   gloo sends CPU tensors only), both modes: launches per rank exact (the
+   halo's SpMM runs its own block and one ring step), losses within 1e-5 of
+   the single-device run, the ranks' parameters equal, the metrics equal,
+   step times labelled as a shared card's; (c) the flat experiment's command
+   line with ``--train-sharding halo --train-n-devices 1`` writing its row;
+   the kernel on each rank's plans of a 2-way partition (the all-gather's
+   forward and transpose, the halo's own and remote blocks) against its
+   plain version with its times, and an empty shard's plans; the halo's comm
+   rows against the all-gather's at D = 2, 4 and 8.
 
 It prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -197,7 +214,7 @@ _T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    if msg.startswith("[") and "/14]" in msg[:7]:  # a phase's header: when it began
+    if msg.startswith("[") and "/15]" in msg[:7]:  # a phase's header: when it began
         msg = f"{msg.split(']', 1)[0]} at {time.perf_counter() - _T0:.1f}s]{msg.split(']', 1)[1]}"
     print(msg, flush=True)
 
@@ -419,7 +436,7 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     n, e = g.n_nodes, g.n_edges
-    log(f"[10/14] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
+    log(f"[10/15] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
         "level or member):")
     _, (cat1, cat2), _, _ = common.load_corpus(cfg, levels=["Cat1", "Cat2"])
     if not np.array_equal(cat2, np.asarray(g.y)[g.n_vocab:]):
@@ -640,7 +657,7 @@ def operator_options(args, card, g, n_classes: int, hidden: int, adj, counters, 
     out, errs, rows_json = {}, [], []
     y = torch.as_tensor(g.y, dtype=torch.int64, device=dev)
     train_mask = torch.as_tensor(g.train_mask, device=dev)
-    log(f"[11/14] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
+    log(f"[11/15] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
 
     # ---- the masked head through the flat experiment
     mcfg = parse_config(base + ["--train-masked-head", "true"])
@@ -1132,7 +1149,7 @@ def mlp_and_last_options(args, card, g, n_classes: int, hidden: int, counters, g
     epochs = MODEL_EPOCHS
     n, e = g.n_nodes, g.n_edges
     out, errs = {}, []
-    log(f"[12/14] the MLP baselines, the CSV loaders and the last trainer options "
+    log(f"[12/15] the MLP baselines, the CSV loaders and the last trainer options "
         f"({epochs} epochs a path):")
 
     # ---- the MLP experiment at the synthetic-amazon scale
@@ -1467,7 +1484,7 @@ def counting_and_minibatching(args, card, cfg, g, n_classes: int, adj, counters,
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     out, errs = {}, []
-    log("[13/14] device counting and mini-batching:")
+    log("[13/15] device counting and mini-batching:")
 
     # ---- device counting against native on the corpus of phase 2
     gc = cfg.graph
@@ -1898,6 +1915,403 @@ def allocator_timing(n_docs: int) -> int:
     return 0
 
 
+# ------------------------------------------------------------ phase 15
+
+SHARDED_EPOCHS = 5  # epochs of each phase-15 training run
+SHARED_RANKS = 2  # ranks sharing the card over gloo, phase 15 (b)
+SHARDED_RTOL = 1e-5  # a partitioned run's losses against the single-device run's
+
+
+def fit_counted(trainer, g, n_classes: int, epochs: int):
+    """``fit`` (an eval every epoch) and ``evaluate``, the CSR kernel's
+    counts set to 0 just before; returns the losses, the launches, the
+    launches by plan shape and the test metrics."""
+    import torch
+
+    from pytextgcn_tpu_torch.ops import spmm_cuda
+
+    kernel = spmm_cuda.spmm_csr_kernel
+    kernel.launches, kernel.shapes = 0, {}
+    hist = trainer.fit(g, epochs=epochs, n_classes=n_classes, eval_every=1)
+    metrics = trainer.evaluate(g, n_classes=n_classes)
+    torch.cuda.synchronize()
+    return [r["loss"] for r in hist], kernel.launches, dict(kernel.shapes), metrics
+
+
+def sharded_launches(plans_a_spmm: int, epochs: int) -> int:
+    """CSR launches of ``fit_counted`` for a 2-layer GCN whose SpMM runs
+    ``plans_a_spmm`` plans (1 on one device or under 'allgather', D under
+    the halo: the own block and D - 1 ring steps): each of the 4 SpMMs a
+    train step and the 2 of each of the E + 1 forward-only passes."""
+    return plans_a_spmm * (4 * epochs + 2 * (epochs + 1))
+
+
+def train_step_fn(trainer, g):
+    """The trainer's train step on its own operator and rows, as ``fit``
+    runs it (phase 9's timing of a step)."""
+    import torch
+
+    from pytextgcn_tpu_torch.train.metrics import global_count
+
+    adj, feats = trainer.prepare(g)
+    y = trainer._local(trainer._tensor(g.y, torch.int64))
+    mask = trainer._local(trainer._tensor(g.train_mask))
+    denom = global_count(mask, trainer._group()) if trainer.halo else None
+    return lambda: trainer._train_step(adj, feats, y, mask, denom=denom)
+
+
+def same_metrics(got: dict, want: dict) -> bool:
+    """Test accuracy and macro-F1 equal to 1e-6 (counts of the same
+    predictions, summed in another order)."""
+    return got.keys() == want.keys() and all(abs(got[k] - want[k]) <= 1e-6 for k in want)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def params_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def partition_rank(rank: int, world: int, address: str, backend: str, graph_path: str,
+                   model_cfg: dict, n_classes: int, out_dir: str) -> None:
+    """One rank of ``world`` (``torch.multiprocessing``): over gloo the
+    ranks share ``cuda:0`` (phase 15 (b)), over NCCL each has its card
+    (``--nccl-ranks``). The graph from the parent's npz, each mode trained
+    ``SHARDED_EPOCHS`` epochs from phase 9's initial parameters, its
+    launches, losses, metrics, parameter digest and step time written to
+    ``out_dir/rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from pytextgcn_tpu_torch.config import ModelConfig, make_model
+    from pytextgcn_tpu_torch.core.graph import TextGraph
+    from pytextgcn_tpu_torch.parallel import init_distributed, make_mesh
+    from pytextgcn_tpu_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = "cuda:0" if backend == "gloo" else "cuda"
+    init_distributed(address, world, rank, backend=backend, device=device, timeout_s=300)
+    mesh = make_mesh(world, device=device)
+    g = TextGraph.load(graph_path)
+    out = {"backend": mesh.backend, "device": str(mesh.device), "staged": mesh.staged}
+    for mode in ("allgather", "halo"):
+        model = make_model(ModelConfig(**model_cfg), g.in_dim, n_classes,
+                           generator=torch.Generator().manual_seed(3))
+        trainer = Trainer(model, lr=0.05, mesh=mesh, halo=mode == "halo")
+        t0 = time.perf_counter()
+        adj, _ = trainer.prepare(g)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        losses, launches, shapes, metrics = fit_counted(trainer, g, n_classes, SHARDED_EPOCHS)
+        out[mode] = {
+            "losses": losses, "launches": launches,
+            "shapes": {str(k): v for k, v in shapes.items()}, "metrics": metrics,
+            "params": params_digest(model), "build_s": build_s,
+            "step_ms": host_step_ms(train_step_fn(trainer, g), reps=10),
+            "comm_rows": getattr(adj, "comm_rows_per_device", None), "rows_per": adj.rows_per,
+        }
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def run_ranks(world: int, backend: str, g, cfg, n_classes: int):
+    """``world`` ranks of :func:`partition_rank` on ``g``; returns each
+    rank's results and the seconds they took."""
+    import dataclasses
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gpath = os.path.join(tmp, "graph.npz")
+        g.save(gpath)
+        t0 = time.perf_counter()
+        try:
+            torch.multiprocessing.spawn(
+                partition_rank, nprocs=world, join=True,
+                args=(world, f"127.0.0.1:{free_port()}", backend, gpath,
+                      dataclasses.asdict(cfg.model), n_classes, tmp))
+        except Exception as exc:  # a rank raised: its traceback is in the message
+            fail(f"{world} ranks over {backend}: {exc}")
+        secs = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks, secs
+
+
+def check_losses(name: str, got, want) -> float:
+    """Fails unless ``got`` is within ``SHARDED_RTOL`` of ``want`` relative,
+    loss for loss; returns the largest relative difference."""
+    import numpy as np
+
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    ok = len(got) == len(want) and rel <= SHARDED_RTOL and np.isfinite(got).all()
+    log(f"  check {name} losses against the single-device run: max rel diff {rel:.3e} "
+        f"(rtol {SHARDED_RTOL:g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name}: losses {got} against the single-device {want}")
+    return rel
+
+
+def check_ranks(tag: str, label: str, ranks, want, want_metrics: dict, card: str) -> dict:
+    """Each mode on every rank: launches exact (the halo's SpMM runs its
+    own block and one plan a ring step), losses within ``SHARDED_RTOL`` of
+    the single-device run, the same parameters on every rank, the
+    single-device metrics. Returns the summary."""
+    world = len(ranks)
+    out = {"ranks": world, "backend": ranks[0]["backend"], "label": label}
+    for mode, plans_a_spmm in (("allgather", 1), ("halo", world)):
+        expected = sharded_launches(plans_a_spmm, SHARDED_EPOCHS)
+        per_rank = [r[mode] for r in ranks]
+        launches = [r["launches"] for r in per_rank]
+        log(f"  {tag} {mode}, {label}: launches per rank {launches} (expected "
+            f"{expected} each), step ms per rank {[round(r['step_ms'], 3) for r in per_rank]} "
+            f"on {card}; operator build {[round(r['build_s'], 2) for r in per_rank]} s")
+        if launches != [expected] * world:
+            fail(f"{tag} {mode}: launches {launches}, expected {expected} a rank")
+        if len({r["params"] for r in per_rank}) != 1:
+            fail(f"{tag} {mode}: the ranks' parameters differ after training")
+        rels = [check_losses(f"{tag} {mode} rank {i}", r["losses"], want)
+                for i, r in enumerate(per_rank)]
+        if not all(same_metrics(r["metrics"], want_metrics) for r in per_rank):
+            fail(f"{tag} {mode}: metrics {[r['metrics'] for r in per_rank]} against "
+                 f"{want_metrics}")
+        out[mode] = {"launches": launches, "step_ms": [r["step_ms"] for r in per_rank],
+                     "max_rel_loss_diff": max(rels), "shapes": per_rank[0]["shapes"],
+                     "build_s": [r["build_s"] for r in per_rank]}
+    rows_per = ranks[0]["halo"]["rows_per"]
+    out["halo_comm_rows"] = ranks[0]["halo"]["comm_rows"]
+    out["allgather_rows"] = (world - 1) * rows_per
+    log(f"  {tag} ranks {[(r['backend'], r['device'], 'staged' if r['staged'] else '') for r in ranks]}"
+        f"; halo comm rows a rank and SpMM {out['halo_comm_rows']} against the all-gather's "
+        f"{out['allgather_rows']}")
+    return out
+
+
+def partitioned_training(card, cfg, g, n_classes: int, widths, gen, dev):
+    """Phase 15: graph-partitioned training (parallel/) on phase 2's graph.
+    (a) world 1 over NCCL on the card, 'allgather' and 'halo', against the
+    single-device CSR path from phase 9's initial parameters; (b)
+    ``SHARED_RANKS`` ranks sharing the card over gloo, both modes; (c) the
+    flat experiment's command line with ``--train-sharding halo
+    --train-n-devices 1``; the kernel on each rank's plans of a 2-way
+    partition against its plain version, with its times; the halo's comm
+    rows at D = 2, 4 and 8. Each fatal. Returns (the summary, the kernel's
+    errors, its per-shard plan times)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pytextgcn_tpu_torch.config import make_model
+    from pytextgcn_tpu_torch.core.graph import TextGraph
+    from pytextgcn_tpu_torch.experiments import flat
+    from pytextgcn_tpu_torch.ops import spmm_cuda
+    from pytextgcn_tpu_torch.parallel import (Mesh, build_halo_adj, build_sharded_adj,
+                                              init_distributed, make_mesh)
+    from pytextgcn_tpu_torch.train import Trainer
+
+    kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
+                          spmm_cuda.spmm_csr_abs)
+    epochs, n = SHARDED_EPOCHS, g.n_nodes
+    log(f"[15/15] graph-partitioned training on phase 2's graph (N={n}, E={g.n_edges}), "
+        f"{epochs} epochs a run, phase 9's initial parameters:")
+    out, errs = {}, []
+
+    def model():
+        return make_model(cfg.model, g.in_dim, n_classes,
+                          generator=torch.Generator().manual_seed(3))
+
+    # ---- (a) the single-device CSR path, then world 1 over NCCL
+    single = Trainer(model(), lr=0.05, device=dev)
+    want, launches, _, want_metrics = fit_counted(single, g, n_classes, epochs)
+    if launches != sharded_launches(1, epochs):
+        fail(f"single-device run: {launches} launches, expected {sharded_launches(1, epochs)}")
+    single_ms = host_step_ms(train_step_fn(single, g), reps=10)
+    log(f"  (a) single device: losses {[round(v, 6) for v in want]}, {launches} launches, "
+        f"step {single_ms:.3f} ms")
+    del single
+    init_distributed(backend="nccl", device=dev)
+    mesh = make_mesh(1, device=dev)
+    world1 = {"backend": mesh.backend, "single_step_ms": single_ms, "single_losses": want}
+    for mode in ("allgather", "halo"):
+        trainer = Trainer(model(), lr=0.05, mesh=mesh, halo=mode == "halo")
+        got, launches, shapes, metrics = fit_counted(trainer, g, n_classes, epochs)
+        expected = sharded_launches(1, epochs)
+        plan_shapes = sorted({k[:2] for k in shapes})
+        ms = host_step_ms(train_step_fn(trainer, g), reps=10)
+        log(f"  (a) world 1 over {mesh.backend}, {mode}: {launches} launches (expected "
+            f"{expected}) on plans {plan_shapes}; step {ms:.3f} ms (single device "
+            f"{single_ms:.3f}); test acc {metrics['accuracy']:.4f}")
+        if launches != expected or plan_shapes != [(n, n)]:
+            fail(f"world 1 {mode}: {launches} launches on {plan_shapes}, expected {expected} "
+                 f"on [({n}, {n})]")
+        rel = check_losses(f"(a) world 1 {mode}", got, want)
+        if not same_metrics(metrics, want_metrics):
+            fail(f"world 1 {mode}: metrics {metrics} against the single device's {want_metrics}")
+        world1[mode] = {"launches": launches, "losses": got, "max_rel_loss_diff": rel,
+                        "step_ms": ms, "metrics": metrics}
+        del trainer
+    out["world1"] = world1
+
+    # ---- (b) ranks sharing the card over gloo
+    ranks, secs = run_ranks(SHARED_RANKS, "gloo", g, cfg, n_classes)
+    label = (f"{SHARED_RANKS} ranks sharing one card over gloo (the exchange through host "
+             "memory): no prediction of NCCL across cards")
+    out["shared_card"] = check_ranks("(b)", label, ranks, want, want_metrics, card)
+    out["shared_card"]["seconds"] = secs
+
+    # ---- (c) the flat experiment's command line, world 1
+    with tempfile.TemporaryDirectory() as tmp:
+        gpath, rpath = os.path.join(tmp, "graph.npz"), os.path.join(tmp, "results.csv")
+        g.save(gpath)
+        kernel.launches = 0
+        res = flat.main(["--load-graph", gpath, "--model-n-hidden", str(cfg.model.n_hidden),
+                         "--model-dropout", str(cfg.model.dropout), "--train-lr", "0.05",
+                         "--train-epochs", "3", "--train-eval-every", "1",
+                         "--train-verbose", "0", "--train-sharding", "halo",
+                         "--train-n-devices", "1", "--result-file", rpath])
+        torch.cuda.synchronize()
+        with open(rpath) as f:
+            rows = f.read().strip().splitlines()
+    expected = sharded_launches(1, 3)
+    log(f"  (c) flat --train-sharding halo --train-n-devices 1: {kernel.launches} launches "
+        f"(expected {expected}), row {rows[-1]!r}")
+    if kernel.launches != expected or len(rows) != 2 or not np.isfinite(
+            [r["loss"] for r in res["history"]]).all():
+        fail(f"(c) the flat experiment: {kernel.launches} launches, rows {rows}")
+    out["flat_cli"] = {"launches": kernel.launches, "row": rows[-1]}
+    dist.destroy_process_group()
+
+    # ---- the kernel on each rank's plans of a 2-way partition
+    plan_rows = []
+    for r in range(2):
+        rank_mesh = Mesh(None, r, 2, dev)
+        adj = build_sharded_adj(g, rank_mesh, use_pallas=True)
+        halo = build_halo_adj(g, rank_mesh, use_pallas=True)
+        plans = {"allgather fwd": adj.plan_fwd, "allgather bwd": adj.plan_bwd,
+                 "halo own fwd": halo.plan_own.fwd, "halo own bwd": halo.plan_own.bwd,
+                 "halo remote fwd": halo.plan_rem[0].fwd, "halo remote bwd": halo.plan_rem[0].bwd}
+        for pname, csr in plans.items():
+            for h in widths:
+                x = torch.randn(csr.n_cols, h, generator=gen, device=dev)
+                errs.append(compare(f"rank {r} of 2, {pname} [{csr.n_rows}, {csr.n_cols}] H={h}",
+                                    kernel(csr, x), plain(csr, x), mag(csr, x), F32_RTOL))
+                lib = sparse_csr(csr)
+                n_bytes, flops, bound, bound_by = spmm_work(csr, h, 4)
+                row = {"rank": r, "plan": pname, "shape": [csr.n_rows, csr.n_cols],
+                       "edges": csr.n_edges, "h": h, "ms": time_ms(lambda: kernel(csr, x), 30),
+                       "plain_ms": time_ms(lambda: plain(csr, x), 3, warmup=1),
+                       "library_ms": time_ms(lambda: torch.sparse.mm(lib, x), 10),
+                       "bound_ms": bound, "bound_by": bound_by}
+                plan_rows.append(row)
+                log(f"    {pname} rank {r} H={h}: kernel {row['ms']:.4f} ms, bound "
+                    f"{bound:.4f} ms by {bound_by}, plain {row['plain_ms']:.4f}, "
+                    f"torch.sparse.mm {row['library_ms']:.4f} ({csr.n_edges} edges)")
+        del adj, halo, plans
+    # a shard with no edges (every edge lands in the first 1,000 of 3,000
+    # rows: rank 3 of 4 holds none): its plans launch and give exact zeros
+    rng = np.random.default_rng(15)
+    sg = TextGraph(edge_src=rng.integers(0, 3000, 40_000).astype(np.int32),
+                   edge_dst=rng.integers(0, 1000, 40_000).astype(np.int32),
+                   edge_w=rng.random(40_000).astype(np.float32), y=np.zeros(3000, np.int32),
+                   train_mask=np.zeros(3000, bool), val_mask=np.zeros(3000, bool),
+                   test_mask=np.zeros(3000, bool), n_vocab=1000, n_docs=2000)
+    empty = build_sharded_adj(sg, Mesh(None, 3, 4, dev), use_pallas=True)
+    xe = torch.randn(3000, widths[0], generator=gen, device=dev)
+    ge = torch.randn(empty.rows_per, widths[0], generator=gen, device=dev)
+    if (empty.n_edges or kernel(empty.plan_fwd, xe).any()
+            or kernel(empty.plan_bwd, ge).any()):
+        fail("an empty shard's plans: not exact zeros")
+    log("  check an empty shard's plans (rank 3 of 4, no edges): exact zeros ok")
+
+    # ---- the halo's comm rows against the all-gather's
+    comm = []
+    for d in (2, 4, 8):
+        h = build_halo_adj(g, Mesh(None, 0, d, torch.device("cpu")))
+        comm.append({"d": d, "halo_rows": h.comm_rows_per_device,
+                     "allgather_rows": (d - 1) * h.rows_per})
+        log(f"  halo comm rows a rank and SpMM at D={d}: {h.comm_rows_per_device} against the "
+            f"all-gather's {(d - 1) * h.rows_per} ({h.comm_rows_per_device / ((d - 1) * h.rows_per):.3f})")
+    out["comm_rows"] = comm
+    return out, errs, plan_rows
+
+
+def main_config(args, hidden: int):
+    """Phase 2's flat configuration: synthetic-amazon at ``args.n_docs``
+    documents, the CSR kernel."""
+    from pytextgcn_tpu_torch.config import parse_config
+
+    return parse_config([
+        "--dataset", "synthetic-amazon", "--n-docs", str(args.n_docs),
+        "--model-n-hidden", str(hidden), "--model-dropout", "0.7",
+        "--train-lr", "0.05", "--train-epochs", str(args.epochs),
+        "--train-eval-every", "1", "--train-verbose", "0",
+        "--train-use-pallas", "true",
+    ])
+
+
+def nccl_ranks(args) -> int:
+    """``--nccl-ranks N``: phase 15's two partitions over NCCL on phase 2's
+    graph, one rank a card on N cards (``torch.multiprocessing``), against
+    the single-device CSR path on card 0, each check fatal."""
+    import torch
+
+    from pytextgcn_tpu_torch.config import make_model
+    from pytextgcn_tpu_torch.experiments import flat
+    from pytextgcn_tpu_torch.ops import spmm_cuda
+    from pytextgcn_tpu_torch.train import Trainer
+
+    world = args.nccl_ranks
+    if torch.cuda.device_count() < world:
+        fail(f"--nccl-ranks {world}: {torch.cuda.device_count()} card(s) visible")
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    cards = res.stdout.strip().splitlines()
+    card = cards[0]
+    log(f"cards: {cards}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spmm_cuda.spmm_csr_kernel.build()
+    cfg = main_config(args, 100)
+    t0 = time.perf_counter()
+    g, n_classes = flat.build_graph(cfg)
+    log(f"graph in {time.perf_counter() - t0:.1f}s: N={g.n_nodes} E={g.n_edges}")
+    single = Trainer(make_model(cfg.model, g.in_dim, n_classes,
+                                generator=torch.Generator().manual_seed(3)),
+                     lr=0.05, device=torch.device("cuda", 0))
+    want, launches, _, want_metrics = fit_counted(single, g, n_classes, SHARDED_EPOCHS)
+    single_ms = host_step_ms(train_step_fn(single, g), reps=10)
+    log(f"single device (card 0): losses {[round(v, 6) for v in want]}, {launches} launches, "
+        f"step {single_ms:.3f} ms")
+    del single
+    ranks, secs = run_ranks(world, "nccl", g, cfg, n_classes)
+    summary = check_ranks("(nccl)", f"{world} ranks over NCCL, one a card", ranks, want,
+                          want_metrics, card)
+    summary.update(seconds=secs, single_step_ms=single_ms, cards=cards)
+    log(f"total {time.perf_counter() - _T0:.1f}s")
+    print(json.dumps({"nccl_ranks": summary}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=50_000)
@@ -1907,6 +2321,9 @@ def main(argv=None) -> int:
                          "kernel path, on the hybrid path and on each phase-10 path")
     ap.add_argument("--allocator-timing", action="store_true",
                     help="only the graph and plan builds, timed (phase 14)")
+    ap.add_argument("--nccl-ranks", type=int, default=0,
+                    help="only phase 15's partitions over NCCL, one rank a card on this "
+                         "many cards")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "pytextgcn_tpu_torch")):
@@ -1918,6 +2335,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     if args.allocator_timing:
         return allocator_timing(args.n_docs)
+    if args.nccl_ranks:
+        return nccl_ranks(args)
     import numpy as np
 
     from pytextgcn_tpu_torch.build.native_bridge import load_native
@@ -1965,7 +2384,7 @@ def main(argv=None) -> int:
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/14] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
+    log(f"[1/15] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
         f"kernel, four of the dual kernel) and the native library in "
         f"{time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
@@ -1975,18 +2394,12 @@ def main(argv=None) -> int:
 
     # ------------------------------------------------------------ 2. graph
     hidden = 100
-    cfg = parse_config([
-        "--dataset", "synthetic-amazon", "--n-docs", str(args.n_docs),
-        "--model-n-hidden", str(hidden), "--model-dropout", "0.7",
-        "--train-lr", "0.05", "--train-epochs", str(args.epochs),
-        "--train-eval-every", "1", "--train-verbose", "0",
-        "--train-use-pallas", "true",
-    ])
+    cfg = main_config(args, hidden)
     check_ported(cfg)
     t0 = time.perf_counter()
     g, n_classes = flat.build_graph(cfg)
     n, e = g.n_nodes, g.n_edges
-    log(f"[2/14] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
+    log(f"[2/15] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
         f"(vocab {g.n_vocab}, docs {g.n_docs}), {n_classes} classes")
     widths = (hidden, n_classes)
 
@@ -1994,7 +2407,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     adj = NormAdj.from_graph(g, use_pallas=True, device=dev)
     plan = adj.plan
-    log(f"[3/14] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
+    log(f"[3/15] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
         f"segments, {plan.fwd.n_partials} partial rows (fwd); checks:")
     gen = torch.Generator(device=dev).manual_seed(0)
     f32_errs, bf16_errs = [], []
@@ -2055,7 +2468,7 @@ def main(argv=None) -> int:
     evals = sum("val_f1" in rec for rec in hist) + 1  # + evaluate()
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
-    log(f"[4/14] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
+    log(f"[4/15] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
         f"passes, kernel launches {launches} (expected {expected}); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; test acc {res['accuracy']:.4f}, "
         f"macro-F1 {res['f1_macro']:.4f}; peak memory {peak_gb:.2f} GB")
@@ -2110,14 +2523,14 @@ def main(argv=None) -> int:
     plan_s = time.perf_counter() - t0
     k = hplan.k
     d_bytes = 2 * hplan.d_full.numel() * hplan.d_full.element_size()
-    log(f"[5/14] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
+    log(f"[5/15] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
         f"pair of {d_bytes / 1e6:.1f} MB), {hplan.n_resid} residual edges "
         f"({hplan.n_resid / e:.1%} of E) on the CSR kernel")
     if hplan.d_lo is None or tuple(hplan.d_full.shape) != (n, k) or k != HOT_K:
         fail(f"hybrid plan: K={k}, D {tuple(hplan.d_full.shape)}, split {hplan.d_lo is not None}")
 
     # ------------------------------------------------------------ 6. dual kernel
-    log("[6/14] the dual kernel against its plain version (tolerance relative to "
+    log("[6/15] the dual kernel against its plain version (tolerance relative to "
         "|D| @ |xh| and |D|^T @ |x|):")
     pair = (hplan.d_full, hplan.d_lo)
     d32 = pair[0].float() + pair[1].float()  # the f32 D of the f32 variant
@@ -2189,7 +2602,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 7. hybrid SpMM
-    log(f"[7/14] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
+    log(f"[7/15] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
         f"of |A_hat| @ |x|):")
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev, requires_grad=True)
@@ -2227,7 +2640,7 @@ def main(argv=None) -> int:
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
     path_launches = {"split": hcounts["dual"].get("split", 0)}
-    log(f"[8/14] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
+    log(f"[8/15] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
         f"{evals} forward-only passes; dual kernel launches {hcounts['dual']}, CSR kernel "
         f"launches {hcounts['csr']} (expected {expected} each); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; test acc {hres['accuracy']:.4f}, macro-F1 {hres['f1_macro']:.4f}; "
@@ -2276,7 +2689,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 9. times
-    log(f"[9/14] times on {card} (CUDA events, warm, per launch):")
+    log(f"[9/15] times on {card} (CUDA events, warm, per launch):")
     by_width = []
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev)
@@ -2470,10 +2883,15 @@ def main(argv=None) -> int:
     f32_errs += slice10_errs
 
     # ------------------------------------------------------------ 14. tooling, drivers
-    log("[14/14] tooling and drivers:")
+    log("[14/15] tooling and the last experiment scripts:")
     probe_out, pr = probe_against_spec(card, dev)
     slice11 = tooling_and_drivers(args, card, g, dev, pr)
     slice11["probe"] = probe_out
+
+    # ------------------------------------------------------------ 15. partitioned training
+    slice12, slice12_errs, shard_rows = partitioned_training(card, cfg, g, n_classes, widths,
+                                                             gen, dev)
+    f32_errs += slice12_errs
 
     def dual_entry(key, replaces, path):
         rows = dual_rows[key]
@@ -2529,6 +2947,14 @@ def main(argv=None) -> int:
         "subgraph_plans": subgraph_rows,
         "counting_and_minibatching": slice10,
         "tooling_and_drivers": slice11,
+        "launches_sharded": {
+            "world1_allgather": slice12["world1"]["allgather"]["launches"],
+            "world1_halo": slice12["world1"]["halo"]["launches"],
+            "shared_card_allgather": slice12["shared_card"]["allgather"]["launches"],
+            "shared_card_halo": slice12["shared_card"]["halo"]["launches"],
+            "flat_cli_halo": slice12["flat_cli"]["launches"]},
+        "per_shard_plans": shard_rows,
+        "partitioned_training": slice12,
     },
         {**dual_entry("split", "pytextgcn_tpu/ops/fused_dual.py:185",
                       f"flat.run --train-hybrid-k {HOT_K} (f32 split2, the default), "

@@ -142,7 +142,7 @@ def train_mlp(
     if mesh is not None:
         raise NotImplementedError(
             "the data-parallel MLP step (mesh=) is not ported yet: it comes with "
-            "the parallel slice, ROADMAP.md §1 item 4")
+            "the parallel slice, ROADMAP.md §1 item 4c")
     dev = resolve_device(device)
     xs_tr = SparseMatrix.from_scipy(x_train, use_pallas=use_pallas, device=dev)
     xs_va = SparseMatrix.from_scipy(x_val, use_pallas=use_pallas, device=dev)

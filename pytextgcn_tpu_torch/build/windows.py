@@ -300,7 +300,7 @@ def word_word_edges(
         return coo, wgt, n_windows
     if backend == "sharded":
         raise NotImplementedError(
-            "word-word counting backend 'sharded' is not ported yet (ROADMAP.md)"
+            "word-word counting backend 'sharded' is not ported yet (ROADMAP.md §1 item 4c)"
         )
     raise ValueError(f"unknown backend {backend!r}")
 

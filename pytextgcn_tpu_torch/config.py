@@ -89,8 +89,12 @@ class TrainConfig:
     compile_cache: str = ".xla_cache"
     # the final layer aggregates into the train rows only (ops/restricted.py)
     masked_head: bool = False
-    sharding: str = "off"  # not ported yet
-    n_devices: int = 0  # > 1 (the ensemble across devices) is not ported yet
+    # graph partition over ranks (parallel/): off | allgather | halo ('hybrid'
+    # is not ported yet, ROADMAP.md §1 item 4b); flat experiment only
+    sharding: str = "off"
+    # ranks of --train-sharding, one a card (0: every visible card); the
+    # ensemble across devices (--train-ep) is not ported yet (§1 item 4c)
+    n_devices: int = 0
     # per-label: all members in one batched step (hierarchy/perlabel.py)
     ep: bool = False
     verbose: int = 1
@@ -185,10 +189,6 @@ def parse_config(argv=None, cfg: Optional[ExperimentConfig] = None) -> Experimen
     return cfg
 
 
-def _off(v: str, *off_values: str) -> bool:
-    return (v or "").lower() in off_values
-
-
 def hybrid_k_arg(cfg: TrainConfig):
     """TrainConfig.hybrid_k ('off' | 'auto' | 'auto-tpu' | int string) ->
     Trainer arg. 'auto-tpu' is off: the port never runs on a TPU."""
@@ -238,14 +238,47 @@ def hybrid_f32_mode_arg(cfg: TrainConfig):
 DATASETS = ("synthetic", "amazon", "dbpedia", "synthetic-amazon", "synthetic-dbpedia", "csv")
 
 
-def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = True) -> None:
+SHARDINGS = ("off", "none", "", "allgather", "halo", "hybrid")
+
+
+def sharding_mode(cfg: TrainConfig) -> Optional[str]:
+    """'allgather', 'halo' or 'hybrid'; None when the graph is not sharded."""
+    v = (cfg.sharding or "off").lower()
+    if v not in SHARDINGS:
+        raise SystemExit("--train-sharding must be 'off', 'allgather', 'halo', or 'hybrid', "
+                         f"got {cfg.sharding!r}")
+    return None if v in ("off", "none", "") else v
+
+
+def sharding_args(cfg: TrainConfig, hybrid_k, device=None) -> dict:
+    """TrainConfig.sharding/n_devices -> Trainer kwargs: ``mesh`` and
+    ``halo`` (the mesh over the process group this rank has joined, or a
+    group of one, ``parallel.make_mesh``) and ``hybrid_k`` (``hybrid_k``
+    when not sharded; the sharded modes are the pure partitions)."""
+    mode = sharding_mode(cfg)
+    if mode is None:
+        return {"hybrid_k": hybrid_k}
+    if mode == "hybrid":
+        raise SystemExit("--train-sharding hybrid: not ported to pytextgcn_tpu_torch yet "
+                         "(see ROADMAP.md §1 item 4b)")
+    from .parallel import make_mesh
+
+    return {"mesh": make_mesh(cfg.n_devices or None, device=device),
+            "halo": mode == "halo", "hybrid_k": None}
+
+
+def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = True,
+                 sharding: bool = True) -> None:
     """Stop with a message naming ROADMAP.md when the config asks for
     anything this port does not have yet, or for an option the run would
     not honour. ``graph``: the config trains a graph model
     (experiments/flat.py, perlevel.py and perlabel.py, which refuse
     ``--model-model mlp``); experiments/mlp.py passes False. ``minibatch``:
     the driver can mini-batch (``--train-batch-size > 0``); the hierarchy
-    and MLP drivers pass False."""
+    and MLP experiments pass False. ``sharding``: the experiment can partition
+    the graph over ranks (``--train-sharding allgather|halo``, the flat
+    experiment, as in the JAX package); the hierarchy and MLP experiments
+    pass False."""
     t = cfg.train
     if graph and cfg.model.model == "mlp":
         raise SystemExit("--model-model mlp: the TF-IDF + MLP baseline takes no graph; "
@@ -259,9 +292,10 @@ def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = Tr
         raise SystemExit(f"--dataset must be one of {', '.join(DATASETS)}, got {cfg.dataset!r}")
     if cfg.model.model not in ("gcn", "egcn", "jk", "mlp"):
         raise SystemExit(f"--model-model must be gcn, egcn, jk or mlp, got {cfg.model.model!r}")
-    hybrid_k_arg(t)  # these three raise on a value they do not know
+    hybrid_k_arg(t)  # these four raise on a value they do not know
     hybrid_fused_arg(t)
     hybrid_f32_mode_arg(t)
+    sharded = sharding_mode(t)
     if t.batch_size > 0:
         if not minibatch:
             raise SystemExit("--train-batch-size > 0: only the flat driver mini-batches; the "
@@ -273,16 +307,28 @@ def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = Tr
             (f"--train-hybrid-k {t.hybrid_k}", hybrid_k_arg(t) is not None),
             ("--train-masked-head", t.masked_head), ("--train-ep", t.ep),
             (f"--train-plan-cache {t.plan_cache}", bool(t.plan_cache)),
-            (f"--train-early-stopping {t.early_stopping}", t.early_stopping is not None)) if on]
+            (f"--train-early-stopping {t.early_stopping}", t.early_stopping is not None),
+            (f"--train-sharding {t.sharding}", sharded is not None)) if on]
         if unrun:
             raise SystemExit(f"--train-batch-size > 0 does not run {', '.join(unrun)} (the "
                              "mini-batch step trains on subgraphs; ROADMAP.md)")
     if cfg.graph.backend == "sharded":
-        missing.append("--graph-backend sharded")
-    if not _off(t.sharding, "off", "none", ""):
-        missing.append(f"--train-sharding {t.sharding}")
+        missing.append("--graph-backend sharded (§1 item 4c)")
+    if sharded == "hybrid":
+        missing.append("--train-sharding hybrid (§1 item 4b)")
+    elif sharded is not None:
+        if not sharding:
+            raise SystemExit(f"--train-sharding {t.sharding}: only the flat experiment partitions "
+                             "the graph, as in the JAX package (ROADMAP.md)")
+        missing += [f"{flag} under --train-sharding (§1 item 4b)" for flag, on in (
+            ("--train-masked-head", t.masked_head),
+            (f"--train-hybrid-k {t.hybrid_k}", hybrid_k_arg(t) is not None),
+            (f"--train-plan-cache {t.plan_cache}", bool(t.plan_cache))) if on]
+        if t.n_devices == 0 and (cfg.device or "cuda").startswith("cpu"):
+            raise SystemExit("--train-n-devices 0 means every visible card; on the CPU give "
+                             "the number of ranks (--train-n-devices N)")
     if t.ep and t.n_devices > 1:
-        missing.append(f"--train-ep across --train-n-devices {t.n_devices}")
+        missing.append(f"--train-ep across --train-n-devices {t.n_devices} (§1 item 4c)")
     if missing:
         raise SystemExit(
             "not ported to pytextgcn_tpu_torch yet (see ROADMAP.md): " + ", ".join(missing)

@@ -9,7 +9,11 @@ hierarchy drivers.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import contextlib
+import io
+import os
+import socket
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -143,15 +147,18 @@ def trainer_kwargs(cfg: ExperimentConfig, default_optimizer: Optional[str] = Non
     ``cfg.train.optimizer == 'default'`` leaves the optimizer to the caller
     (``default_optimizer``): amsgrad for flat runs, plain Adam for the
     hierarchy drivers, as in the reference."""
-    from ..config import hybrid_f32_mode_arg, hybrid_fused_arg, hybrid_k_arg
+    from ..config import hybrid_f32_mode_arg, hybrid_fused_arg, hybrid_k_arg, sharding_args
 
     opt = cfg.train.optimizer
+    kw = sharding_args(cfg.train, hybrid_k_arg(cfg.train), cfg.device)
+    if "mesh" in kw:  # the trainer runs on the mesh's device
+        kw["device"] = None
     return {
         "optimizer": default_optimizer if opt == "default" else opt,
         "use_pallas": cfg.train.use_pallas,
         "pallas_dtype": cfg.train.pallas_dtype,
         "device": cfg.device,
-        "hybrid_k": hybrid_k_arg(cfg.train),
+        **kw,
         "hybrid_fused": hybrid_fused_arg(cfg.train),
         "hybrid_f32_mode": hybrid_f32_mode_arg(cfg.train),
         "masked_head": cfg.train.masked_head,
@@ -165,3 +172,87 @@ def exact_f32() -> None:
     JAX package runs them: cuDNN would use TF32 by default."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# ------------------------------------------------------------ ranks
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _under_torchrun() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def spawn_ranks(cfg: ExperimentConfig, target: Callable, argv: Sequence[str]) -> bool:
+    """Start the ranks ``--train-sharding`` asks for, when this process is
+    not one already: ``--train-n-devices N > 1`` (0: every visible card)
+    local processes, each calling ``target(rank, argv, address, N)``
+    (``torch.multiprocessing``, one card a rank), and wait for them.
+    Returns False, starting nothing, where this process runs alone or is
+    a rank (under torchrun, or in a group it has joined)."""
+    import torch.distributed as dist
+
+    from ..config import sharding_mode
+    from ..utils import resolve_device
+
+    if sharding_mode(cfg.train) is None or _under_torchrun() or dist.is_initialized():
+        return False
+    dev = resolve_device(cfg.device)
+    n = cfg.train.n_devices or torch.cuda.device_count()
+    if n <= 1:
+        return False
+    if dev.type == "cuda" and n > torch.cuda.device_count():
+        raise SystemExit(
+            f"--train-n-devices {n}: {torch.cuda.device_count()} card(s) visible, and NCCL "
+            "refuses two ranks on one GPU, so the experiment starts one rank a card")
+    torch.multiprocessing.spawn(target, args=(list(argv), f"127.0.0.1:{_free_port()}", n),
+                                nprocs=n, join=True)
+    return True
+
+
+def join_rank(cfg: ExperimentConfig, address: str, n: int, rank: int) -> None:
+    """A spawned rank joins its group (NCCL on a card, gloo on the CPU,
+    where the ranks split the cores)."""
+    from ..parallel import init_distributed
+    from ..utils import resolve_device
+
+    dev = resolve_device(cfg.device)
+    if dev.type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    init_distributed(address, n, rank, device=dev)
+
+
+def leave_group() -> None:
+    """A spawned rank's last step: wait for every rank, then take the group
+    down. A rank that exits holding it has its NCCL watchdog find rank 0's
+    store gone and report an error."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def rank0_output(cfg: ExperimentConfig):
+    """Under ``--train-sharding`` join the group (torchrun's, or one of
+    this process alone) and silence every rank's standard output but rank
+    0's, which alone prints, writes the results row and saves."""
+    from ..config import sharding_mode
+
+    if sharding_mode(cfg.train) is None:
+        yield
+        return
+    import torch.distributed as dist
+
+    from ..parallel import init_distributed
+
+    init_distributed(device=cfg.device)
+    if dist.get_rank() == 0:
+        yield
+        return
+    with contextlib.redirect_stdout(io.StringIO()):
+        yield

@@ -19,9 +19,21 @@ Examples:
     python -m pytextgcn_tpu_torch.experiments.flat --dataset synthetic-amazon \
         --train-batch-size 1024 --train-epochs 3 # mini-batches on subgraphs
     python -m pytextgcn_tpu_torch.experiments.flat --graph-backend device  # count on the card
+    python -m pytextgcn_tpu_torch.experiments.flat --device cpu --train-sharding halo \
+        --train-n-devices 2                       # 2 ranks over gloo on the CPU
+    torchrun --nproc-per-node 4 -m pytextgcn_tpu_torch.experiments.flat \
+        --train-sharding allgather                # one rank a card, NCCL
+
+``--train-sharding allgather|halo`` partitions the graph over ranks
+(parallel/): under torchrun every rank joins its group; otherwise
+``--train-n-devices N > 1`` starts N local ranks, one a card, and 1 runs
+this process as a group of one. Every rank builds the same graph; rank 0
+alone prints, writes the results row and saves.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -90,8 +102,8 @@ def run(cfg, g, n_classes):
         print("Confusion matrix:")
         print(cm.cpu().numpy())
     if cfg.save_model:
-        trainer.save(cfg.save_model, epoch=len(history))
-    if cfg.result_file:
+        trainer.save(cfg.save_model, epoch=len(history))  # rank 0 writes
+    if cfg.result_file and (trainer.mesh is None or trainer.mesh.rank == 0):
         append_result(
             cfg.result_file,
             seed=cfg.train.seed,
@@ -103,14 +115,30 @@ def run(cfg, g, n_classes):
     return {**metrics, "history": history, "trainer": trainer}
 
 
+def _main(cfg):
+    with common.rank0_output(cfg):
+        common.exact_f32()
+        g, n_classes = build_graph(cfg)
+        return run(cfg, g, n_classes)
+
+
+def _rank_main(rank: int, argv, address: str, n: int) -> None:
+    """One of the ranks :func:`main` starts (``torch.multiprocessing``)."""
+    cfg = parse_config(argv)
+    common.join_rank(cfg, address, n, rank)
+    _main(cfg)
+    common.leave_group()
+
+
 def main(argv=None):
     """Run the flat protocol. Returns the test metrics plus the per-epoch
-    history under ``"history"``."""
+    history under ``"history"`` (None in a process that started ranks)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     cfg = parse_config(argv)
     check_ported(cfg)
-    common.exact_f32()
-    g, n_classes = build_graph(cfg)
-    return run(cfg, g, n_classes)
+    if common.spawn_ranks(cfg, _rank_main, argv):
+        return None
+    return _main(cfg)
 
 
 if __name__ == "__main__":

@@ -107,7 +107,7 @@ def main(argv=None):
     if hierarchy not in HIERARCHIES:
         raise SystemExit(f"--hierarchy must be one of {', '.join(HIERARCHIES)}")
     cfg = parse_config(argv)
-    check_ported(cfg, graph=False, minibatch=False)
+    check_ported(cfg, graph=False, minibatch=False, sharding=False)
     common.exact_f32()
     splits, n_levels = build_splits(cfg, levels or default_levels(cfg.dataset))
     return run(cfg, splits, n_levels, hierarchy, train_kwargs(cfg, set(argv)))

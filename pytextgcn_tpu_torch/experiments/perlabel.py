@@ -117,7 +117,7 @@ def main(argv=None):
         raise SystemExit(f"--route must be 'ground_truth' or 'predicted', got {route!r}")
     argv, levels = common.pop_list_flag(argv, "--levels")
     cfg = parse_config(argv)
-    check_ported(cfg, minibatch=False)
+    check_ported(cfg, minibatch=False, sharding=False)
     common.exact_f32()
     g, (y_parent, y_child) = build_graph(cfg, levels or common.default_levels(cfg))
     return run(cfg, g, y_parent, y_child, route=route, eval_only=eval_only)

@@ -63,7 +63,7 @@ def run(cfg, g, level_labels):
 def main(argv=None):
     argv, levels = common.pop_list_flag(sys.argv[1:] if argv is None else argv, "--levels")
     cfg = parse_config(argv)
-    check_ported(cfg, minibatch=False)
+    check_ported(cfg, minibatch=False, sharding=False)
     common.exact_f32()
     g, level_labels = build_graph(cfg, levels or common.default_levels(cfg))
     return run(cfg, g, level_labels)

@@ -96,12 +96,12 @@ def train_per_label(
     """
     if mesh is not None:
         devices = getattr(mesh, "devices", None)
-        n_dev = mesh if isinstance(mesh, int) else -1 if devices is None else np.asarray(
-            devices).size
+        n_dev = (mesh if isinstance(mesh, int) else getattr(mesh, "world_size", None)
+                 or (-1 if devices is None else np.asarray(devices).size))
         if n_dev != 1:
             raise NotImplementedError(
                 "the ensemble across devices (parallel/) is not ported yet (see "
-                "ROADMAP.md); a mesh of one device runs the batched step")
+                "ROADMAP.md §1 item 4c); a mesh of one device runs the batched step")
         ep = True
     if ep:
         return _train_per_label_ep(g, y_child, y_parent, model_factory, lr=lr, epochs=epochs,

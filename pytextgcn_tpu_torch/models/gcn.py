@@ -22,7 +22,7 @@ from torch import nn
 
 from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
-from ..ops.spmm import spmm
+from ..ops.spmm import row_block, spmm
 from .layers import Dense, dropout, glorot
 
 
@@ -89,13 +89,15 @@ class GCN(nn.Module):
         ``train``. ``adj_out``: an output-row-restricted operator
         (ops/restricted.py) for the final layer's aggregation, the masked
         head's training path: the logits are then ``[M, out_dim]`` for its
-        M rows. Evaluation passes None."""
+        M rows. Evaluation passes None. Under a halo operator ``feats`` and
+        the logits are this rank's rows (``ops/spmm.py::row_block``)."""
+        rows = row_block(adj)
         first, *rest = self.layers
         h = spmm(adj, feats.matmul(first.w)) + first.b
         for i, layer in enumerate(rest):
             if self.activation is not None:
                 h = self.activation(h)
-            h = dropout(h, self.dropout, train, generator)
+            h = dropout(h, self.dropout, train, generator, rows)
             a = adj_out if (adj_out is not None and i == len(rest) - 1) else adj
             h = spmm(a, h @ layer.w) + layer.b
         return h
@@ -138,14 +140,15 @@ class EGCN(GCN):
         """As :meth:`GCN.forward`. Under ``adj_out`` the dropout on the logits
         draws an ``[M, out_dim]`` mask, so a masked-head run is statistically
         equal to the full-output one, not equal step for step."""
+        rows = row_block(adj)
         h = torch.selu(feats.matmul(self.embed.w) + self.embed.b)
-        h = dropout(h, self.dropout, train, generator)
+        h = dropout(h, self.dropout, train, generator, rows)
         for i, layer in enumerate(self.layers):
             a = adj_out if (adj_out is not None and i == len(self.layers) - 1) else adj
             h = spmm(a, h @ layer.w) + layer.b
             if self.activation is not None:
                 h = self.activation(h)
-            h = dropout(h, self.dropout, train, generator)
+            h = dropout(h, self.dropout, train, generator, rows)
         return h
 
 

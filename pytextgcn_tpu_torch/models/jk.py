@@ -17,7 +17,7 @@ from torch import nn
 
 from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
-from ..ops.spmm import spmm
+from ..ops.spmm import row_block, spmm
 from .gcn import GraphConv
 from .layers import LSTM_LEAVES, Dense, bilstm, dropout
 
@@ -81,18 +81,19 @@ class JumpingKnowledgeNetwork(nn.Module):
             # the JAX package's JumpingKnowledgeNetwork.apply takes no adj_out
             # (models/jk.py:63): its masked head fails there, and is refused here
             raise ValueError(JK_NO_MASKED_HEAD)
+        rows = row_block(adj)  # a halo rank's rows (ops/spmm.py)
         first, *rest = self.layers
         h = spmm(adj, feats.matmul(first.w)) + first.b
         # the reference applies dropout after every layer (models.py:70-73)
-        acts = [dropout(h, self.dropout, train, generator)]
+        acts = [dropout(h, self.dropout, train, generator, rows)]
         for layer in rest:
             h = spmm(adj, acts[-1] @ layer.w) + layer.b
-            acts.append(dropout(h, self.dropout, train, generator))
+            acts.append(dropout(h, self.dropout, train, generator, rows))
 
         xs = torch.stack(acts, dim=1)  # [N, L, C]
         alpha, _ = self.lstm(xs)  # [N, L, 2H]
         score = torch.softmax(self.att(alpha).squeeze(-1), dim=-1)  # [N, L]
         h = (xs * score[:, :, None]).sum(dim=1)  # [N, C]
 
-        h = dropout(self.activation(h), self.dropout, train, generator)
+        h = dropout(self.activation(h), self.dropout, train, generator, rows)
         return self.head(h)

@@ -16,7 +16,7 @@ set.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -51,13 +51,25 @@ def linear_init(in_dim: int, out_dim: int,
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout (torch.nn.functional.dropout semantics) with the
-    keep mask drawn from ``generator``, which must live on x's device."""
+    keep mask drawn from ``generator``, which must live on x's device.
+
+    ``rows``: ``(N, lo)`` when x holds rows ``[lo, lo + len(x))`` of an
+    ``[N, ...]`` activation (a halo rank's, ``ops/spmm.py::row_block``):
+    the full ``[N, ...]`` mask is drawn and x takes its rows, rows past N
+    dropped, so every rank seeded alike draws the single-device masks."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if rows is None else (rows[0], *x.shape[1:])
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if rows is not None:
+        mask = mask[rows[1]:rows[1] + x.shape[0]]
+        if mask.shape[0] < x.shape[0]:
+            mask = torch.cat([mask, mask.new_zeros((x.shape[0] - mask.shape[0],
+                                                    *x.shape[1:]))])
     return torch.where(mask, x / keep, 0.0)
 
 

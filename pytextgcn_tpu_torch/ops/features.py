@@ -10,7 +10,7 @@ over document rows only, so the identity never exists.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -25,13 +25,16 @@ class NodeFeatures:
 
     ``node_ids`` restricts the implicit-identity form to a subgraph: row i
     is the feature row of *global* node ``node_ids[i]`` (padding: -1), so
-    ``matmul`` becomes a row gather of the weight matrix."""
+    ``matmul`` becomes a row gather of the weight matrix. ``block``
+    ``(lo, n_rows)`` restricts any form to rows ``[lo, lo + n_rows)``, rows
+    past the last node zero (a halo rank's rows, :meth:`row_block`)."""
 
     n_vocab: int
     n_docs: int
     x: Optional[torch.Tensor] = None
     hierarchy: Optional[torch.Tensor] = None  # [n_docs, F]
     node_ids: Optional[torch.Tensor] = None  # [M] global ids, -1 = padding
+    block: Optional[Tuple[int, int]] = None  # (first row, rows)
 
     @staticmethod
     def from_graph(g: TextGraph,
@@ -54,6 +57,12 @@ class NodeFeatures:
         return NodeFeatures(self.n_vocab, self.n_docs, hierarchy=self.hierarchy,
                             node_ids=ids)
 
+    def row_block(self, lo: int, n_rows: int) -> "NodeFeatures":
+        """Rows ``[lo, lo + n_rows)`` of the features, rows past the last
+        node zero: a halo rank's first-layer input. :meth:`matmul` slices
+        the whole product, so its gradient is a slice too, not a scatter."""
+        return dataclasses.replace(self, block=(lo, n_rows))
+
     @property
     def n_nodes(self) -> int:
         return self.n_vocab + self.n_docs
@@ -67,6 +76,13 @@ class NodeFeatures:
 
     def matmul(self, w: torch.Tensor) -> torch.Tensor:
         """``X @ w`` without materializing X. ``w``: [in_dim, H]."""
+        if self.block is not None:
+            lo, n_rows = self.block
+            if self.x is not None:
+                out = self.x[lo:lo + n_rows] @ w
+            else:
+                out = dataclasses.replace(self, block=None).matmul(w)[lo:lo + n_rows]
+            return torch.nn.functional.pad(out, (0, 0, 0, n_rows - out.shape[0]))
         if self.x is not None:
             return self.x @ w
         n = self.n_nodes

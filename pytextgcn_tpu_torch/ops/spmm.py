@@ -2,9 +2,11 @@
 
 ``spmm(adj, x)`` computes ``A_hat @ x`` for the normalized adjacency:
 ``out[i] = self_w[i] * x[i] + sum_{e: dst[e]==i} w[e] * x[src[e]]``.
-Port of ``pytextgcn_tpu/ops/spmm.py``. Three paths, and the
+Port of ``pytextgcn_tpu/ops/spmm.py``. Three paths, the
 output-row-restricted operator of the masked head
-(:mod:`.restricted`, ``[M, H]`` out):
+(:mod:`.restricted`, ``[M, H]`` out), and the operators partitioned over
+ranks (:mod:`..parallel`: ``ShardedAdj``, replicated ``[N, H]`` in and out;
+``HaloAdj``, this rank's ``[rows_per, H]`` rows in and out):
 
 * hybrid plan: the dense-hot/sparse-cold decomposition (:mod:`.hybrid`);
 * CSR plan: the CSR kernel (:mod:`.spmm_cuda`) through its autograd
@@ -28,7 +30,21 @@ def spmm_segment(adj: NormAdj, x: torch.Tensor) -> torch.Tensor:
     return segment_sum(adj.src, adj.dst, adj.w, x, adj.n_nodes) + adj.self_w[:, None] * x
 
 
+def row_block(adj):
+    """``(N, first global row)`` of this rank's rows for an operator whose
+    activations are row-sharded (the halo), else None: dropout then draws
+    the rank's rows of the full ``[N, H]`` mask (``models/layers.py``)."""
+    return getattr(adj, "row_block", None)
+
+
 def spmm(adj, x: torch.Tensor) -> torch.Tensor:
+    from ..parallel.halo import HaloAdj, spmm_halo  # parallel imports ops
+    from ..parallel.sharded import ShardedAdj, spmm_sharded
+
+    if isinstance(adj, HaloAdj):
+        return spmm_halo(adj, x)
+    if isinstance(adj, ShardedAdj):
+        return spmm_sharded(adj, x)
     if isinstance(adj, RestrictedAdj):
         return spmm_restricted(adj, x)
     if isinstance(adj.plan, HybridPlan):

@@ -19,6 +19,17 @@ the final layer aggregates into the train rows only during ``fit``
 restricted plans. With ``debug_checks`` every step checks that the loss,
 each gradient and each parameter are finite, on whichever of these paths
 the trainer runs.
+
+With a ``mesh`` (parallel/) the aggregation is partitioned over the ranks
+of a process group, one trainer per rank, each seeded alike. 'allgather'
+(``ShardedAdj``): activations replicated, each rank's kernel runs its row
+block's plan (2 launches a forward pass and 2 a backward pass, as on one
+device), and everything else runs identically on every rank. ``halo``
+(``HaloAdj``): activations, labels and masks are the rank's rows; the loss
+divides by the global train count, parameter gradients are summed over the
+ranks before the optimizer step, and the metrics sum their counts over the
+ranks; each SpMM runs the kernel on the own block and on each ring step's
+block, forward and transpose.
 """
 
 from __future__ import annotations
@@ -37,8 +48,11 @@ from ..ops.features import NodeFeatures
 from ..ops.restricted import RestrictedAdj, build_restricted_adj
 from ..utils import resolve_device
 from .checkpoint import load_checkpoint, load_meta, save_checkpoint
-from .metrics import accuracy, macro_f1, masked_cross_entropy
+from .metrics import accuracy, global_count, macro_f1, masked_cross_entropy
 from .optim import resolve_optimizer
+
+MESH_REFUSED = ("with a mesh: the sharded hybrid and the sharded masked head are not "
+                "ported yet (ROADMAP.md §1 item 4b); a plan cache holds one device's plans")
 
 
 def dropout_seed(seed: int) -> int:
@@ -68,6 +82,8 @@ class Trainer:
         masked_head: bool = False,
         plan_cache: Optional[str] = None,
         debug_checks: bool = False,
+        mesh=None,
+        halo: bool = False,
     ):
         """``seed`` seeds the dropout generator (parameters come with the
         model). ``use_pallas``: aggregate through the CSR kernel (else the
@@ -88,9 +104,25 @@ class Trainer:
         NaN the kernel produces is caught too; the checks read the device
         every step. (The JAX trainer's checkify mode runs the segment path,
         since checkify cannot instrument its Pallas kernel; pass
-        ``use_pallas=False`` for that path here.)"""
+        ``use_pallas=False`` for that path here.) ``mesh``: a
+        ``parallel.Mesh`` (``make_mesh``); the trainer then runs on its
+        device (``device`` must be None or the same), with the 'allgather'
+        partition, or the halo exchange with ``halo``."""
         if masked_head and isinstance(model, JumpingKnowledgeNetwork):
             raise ValueError(JK_NO_MASKED_HEAD)
+        if mesh is not None:
+            unported = [name for name, on in (("hybrid_k", hybrid_k is not None),
+                                              ("masked_head", masked_head),
+                                              ("plan_cache", plan_cache is not None)) if on]
+            if unported:
+                raise ValueError(f"{', '.join(unported)} {MESH_REFUSED}")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+        elif halo:
+            raise ValueError("halo=True needs a mesh")
+        self.mesh = mesh
+        self.halo = halo
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.lr = lr
@@ -123,18 +155,46 @@ class Trainer:
         operator (normalization + kernel plan) is cached by edge-array
         identity, like the JAX trainer's."""
         # the key holds the arrays themselves, so their ids cannot be reused
-        key = (g.edge_src, g.edge_w, g.n_nodes)
+        key = (g.edge_src, g.edge_w, g.n_nodes, self.mesh, self.halo)
         old = self._adj_key
-        if old is None or not (old[0] is key[0] and old[1] is key[1] and old[2] == key[2]):
-            self._adj = NormAdj.from_graph(
-                g, use_pallas=self.use_pallas, pallas_dtype=self.pallas_dtype,
-                device=self.device, hybrid_k=self.hybrid_k,
-                hybrid_fused=self.hybrid_fused, hybrid_f32_mode=self.hybrid_f32_mode,
-                h_hint=getattr(self.model, "n_hidden", 128), plan_cache=self.plan_cache,
-            )
+        if old is None or not (old[0] is key[0] and old[1] is key[1] and old[2:] == key[2:]):
+            if self.mesh is not None:
+                from ..parallel import build_halo_adj, build_sharded_adj
+
+                if self.halo:
+                    self._adj = build_halo_adj(g, self.mesh, use_pallas=self.use_pallas,
+                                               compute_dtype=self.pallas_dtype)
+                else:
+                    self._adj = build_sharded_adj(g, self.mesh, use_pallas=self.use_pallas,
+                                                  pallas_dtype=self.pallas_dtype)
+            else:
+                self._adj = NormAdj.from_graph(
+                    g, use_pallas=self.use_pallas, pallas_dtype=self.pallas_dtype,
+                    device=self.device, hybrid_k=self.hybrid_k,
+                    hybrid_fused=self.hybrid_fused, hybrid_f32_mode=self.hybrid_f32_mode,
+                    h_hint=getattr(self.model, "n_hidden", 128), plan_cache=self.plan_cache,
+                )
             self._adj_key = key
         self._feats = NodeFeatures.from_graph(g, device=self.device)
+        if self.halo:  # the rank's rows of the first layer's input
+            _, lo = self._adj.row_block
+            self._feats = self._feats.row_block(lo, self._adj.rows_per)
         return self._adj, self._feats
+
+    def _group(self):
+        """The process group the metrics and gradients are summed over: the
+        halo mesh's, else None (every rank holds every row)."""
+        return self.mesh.group if self.halo else None
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-node tensor as this trainer's operator holds its rows: a
+        halo rank's block, padded with zeros (False) past the last node;
+        whole elsewhere."""
+        if not self.halo:
+            return t
+        from ..parallel.sharded import local_block
+
+        return local_block(self.mesh, t, self._adj.rows_per)
 
     def share_adjacency(self, other: "Trainer") -> None:
         """Adopt another trainer's prepared operator (normalization and
@@ -144,7 +204,7 @@ class Trainer:
         adopted unless the aggregation settings are equal; :meth:`prepare`'s
         edge-identity check still guards against a different graph."""
         settings = lambda t: (t.device, t.use_pallas, t.pallas_dtype, t.hybrid_k,
-                              t.hybrid_fused, t.hybrid_f32_mode)
+                              t.hybrid_fused, t.hybrid_f32_mode, t.mesh, t.halo)
         if other._adj is None or settings(self) != settings(other):
             return
         self._adj, self._adj_key = other._adj, other._adj_key
@@ -170,12 +230,18 @@ class Trainer:
             self._adj_out_key = key
         return self._adj_out
 
-    def _train_step(self, adj, feats, y, mask, adj_out=None, epoch: int = 0) -> torch.Tensor:
+    def _train_step(self, adj, feats, y, mask, adj_out=None, epoch: int = 0,
+                    denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One step; returns the loss. ``denom``: the halo's global train
+        count (the rank's loss is its part of the sum, and the gradients
+        and the returned loss are summed over the ranks)."""
         self.optimizer.zero_grad(set_to_none=True)
         logits = self.model(adj, feats, train=True, generator=self.generator,
                             adj_out=adj_out)
-        loss = masked_cross_entropy(logits, y, mask)
+        loss = masked_cross_entropy(logits, y, mask, denom)
         loss.backward()
+        if self.halo:
+            loss = self._sum_over_ranks(loss.detach())
         if self.debug_checks:
             self._check_finite(epoch, [("loss", loss)] + [
                 (f"gradient of {name}", p.grad) for name, p in self.model.named_parameters()
@@ -185,6 +251,18 @@ class Trainer:
             self._check_finite(epoch, [(f"parameter {name}", p)
                                        for name, p in self.model.named_parameters()])
         return loss.detach()
+
+    def _sum_over_ranks(self, loss: torch.Tensor) -> torch.Tensor:
+        """Halo: sum each parameter's gradient (one flat all_reduce) and the
+        loss over the ranks; returns the summed loss."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        flat = torch.cat([g.flatten() for g in grads] + [loss.reshape(1)])
+        torch.distributed.all_reduce(flat, group=self.mesh.group)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        return flat[-1]
 
     @staticmethod
     def _check_finite(epoch: int, tensors) -> None:
@@ -197,13 +275,18 @@ class Trainer:
                 raise FloatingPointError(f"debug_checks: {name} holds inf at epoch {epoch + 1}")
 
     @torch.no_grad()
-    def _eval_step(self, adj, feats, y, train_mask, val_mask, n_classes: int):
+    def _eval_step(self, adj, feats, y, train_mask, val_mask, n_classes: int,
+                   val_denom: Optional[torch.Tensor] = None):
         logits = self.model(adj, feats, train=False)
         pred = logits.argmax(dim=-1)
+        group = self._group()
+        val_loss = masked_cross_entropy(logits, y, val_mask, val_denom)
+        if group is not None:
+            torch.distributed.all_reduce(val_loss, group=group)
         return {
-            "val_loss": masked_cross_entropy(logits, y, val_mask),
-            "val_f1": macro_f1(pred, y, val_mask, n_classes),
-            "train_acc": accuracy(pred, y, train_mask),
+            "val_loss": val_loss,
+            "val_f1": macro_f1(pred, y, val_mask, n_classes, group),
+            "train_acc": accuracy(pred, y, train_mask, group),
         }
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
@@ -243,9 +326,13 @@ class Trainer:
         if n_classes is None:
             n_classes = int(np.max(np.asarray(g.y))) + 1
         adj, feats = self.prepare(g)
-        y = self._tensor(g.y, torch.int64)
-        train_mask = self._tensor(g.train_mask)
-        val_mask = self._tensor(g.val_mask)
+        y = self._local(self._tensor(g.y, torch.int64))
+        train_mask = self._local(self._tensor(g.train_mask))
+        val_mask = self._local(self._tensor(g.val_mask))
+        denom = val_denom = None
+        if self.halo:  # the global counts, once
+            denom = global_count(train_mask, self._group())
+            val_denom = global_count(val_mask, self._group())
         adj_out, y_step, mask_step = None, y, train_mask
         if self.masked_head:
             # logits at the train rows only: labels sliced to them, every
@@ -259,14 +346,14 @@ class Trainer:
         width = len(str(epochs))
         t0 = time.time()
         for epoch in range(start_epoch, epochs):
-            loss = self._train_step(adj, feats, y_step, mask_step, adj_out, epoch)
+            loss = self._train_step(adj, feats, y_step, mask_step, adj_out, epoch, denom)
             # reading the loss synchronizes with the device: only where the
             # reference rule needs every epoch's loss, or at eval points
             is_eval = (epoch + 1) % eval_every == 0 or epoch == epochs - 1
             rec = {"loss": loss.item() if (early_stopping == "reference" or is_eval)
                    else loss}
             if is_eval:
-                m = self._eval_step(adj, feats, y, train_mask, val_mask, n_classes)
+                m = self._eval_step(adj, feats, y, train_mask, val_mask, n_classes, val_denom)
                 rec.update({k: float(v) for k, v in m.items()})
                 if verbose > 0:
                     log_fn(
@@ -336,7 +423,8 @@ class Trainer:
 
         refused = [name for name, on in (("hybrid_k", self.hybrid_k is not None),
                                          ("masked_head", self.masked_head),
-                                         ("plan_cache", self.plan_cache is not None)) if on]
+                                         ("plan_cache", self.plan_cache is not None),
+                                         ("a mesh", self.mesh is not None)) if on]
         if refused:
             raise ValueError(f"fit_minibatch does not run {', '.join(refused)}: "
                              "they act on the full graph's operator")
@@ -385,7 +473,12 @@ class Trainer:
     def save(self, path: str, epoch: int) -> None:
         """Checkpoint the parameters (in the JAX package's layout), the
         optimizer and dropout-generator state and the epoch counter:
-        everything :meth:`fit` needs to resume bit for bit."""
+        everything :meth:`fit` needs to resume bit for bit. With a mesh,
+        rank 0 writes (every rank holds the same state) and the ranks wait
+        for it, so each can :meth:`restore` right after."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            torch.distributed.barrier(group=self.mesh.group)
+            return
         save_checkpoint(
             path, export_params(self.model),
             torch_state={"optimizer": self.optimizer.state_dict(),
@@ -393,6 +486,8 @@ class Trainer:
             meta={"epoch": int(epoch), "seed": self.seed,
                   "model": type(self.model).__name__},
         )
+        if self.mesh is not None:
+            torch.distributed.barrier(group=self.mesh.group)
 
     def restore(self, path: str) -> int:
         """Load a checkpoint written by :meth:`save`, or the parameters of
@@ -409,9 +504,15 @@ class Trainer:
 
     @torch.no_grad()
     def predict_logits(self, g: Optional[TextGraph] = None) -> torch.Tensor:
-        """Logits for all nodes (no dropout)."""
+        """Logits for all nodes (no dropout); a halo rank gathers every
+        rank's rows."""
         adj, feats = (self._adj, self._feats) if g is None else self.prepare(g)
-        return self.model(adj, feats, train=False)
+        logits = self.model(adj, feats, train=False)
+        if self.halo:
+            from ..parallel.sharded import all_gather_rows
+
+            logits = all_gather_rows(self.mesh, logits)[:adj.n_nodes]
+        return logits
 
     def evaluate(self, g: TextGraph, mask=None, n_classes: Optional[int] = None):
         """Test metrics over ``mask`` (default: the graph's test_mask)."""

@@ -36,15 +36,16 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 # the EGCN/JK, checkpoint and hierarchy modules, the trainer's operator
 # options (the masked head's restricted operator, the plan cache), the MLP
-# baselines and the CSV loaders, the bench, profiling, the probe and the
-# last drivers
+# baselines and the CSV loaders, the bench, profiling, the probe, the
+# last experiment scripts and the graph partitions over ranks (parallel/)
 MODELS_AND_HIERARCHIES = ["models/jk.py", "train/checkpoint.py", "hierarchy/__init__.py",
            "hierarchy/perlevel.py", "hierarchy/perlabel.py", "experiments/perlevel.py",
            "experiments/perlabel.py", "experiments/protocol.py", "ops/restricted.py",
            "ops/plan_cache.py", "models/mlp.py", "baselines/mlp_pipeline.py",
            "experiments/mlp.py", "data/loaders.py", "bench.py", "train/profiling.py",
            "ops/probe.py", "experiments/hyperopt.py", "experiments/benchmark_graph.py",
-           "build/native_bridge.py"]
+           "build/native_bridge.py", "parallel/__init__.py", "parallel/multihost.py",
+           "parallel/sharded.py", "parallel/halo.py"]
 
 
 def test_every_port_module_is_checked():

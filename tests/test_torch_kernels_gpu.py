@@ -828,3 +828,48 @@ def test_bench_variant_launches_what_its_plans_imply(cuda, bench_graph, name, kw
             name.split(" K")[0]]
         assert per_step["dual"] == {key: 2 if name.endswith("masked-head") else 4}
     assert np.isfinite(res["loss"][name]) and res["step_s"][name] > 0
+
+
+# ---- the partitioned operators' plans (parallel/): each rank's forward
+# [rows_per, N] and transpose [N, rows_per] plans of the all-gather
+# partition, the halo's own [rows_per, rows_per] and remote
+# [rows_per, s_max] blocks; the last shards of a graph whose edges all land
+# in its first rows hold none
+
+def _shard_graph(n=3000, e=40_000, dst_below=None, seed=0):
+    rng = np.random.default_rng(seed)
+    return TextGraph(
+        edge_src=rng.integers(0, n, e).astype(np.int32),
+        edge_dst=rng.integers(0, dst_below or n, e).astype(np.int32),
+        edge_w=rng.random(e).astype(np.float32), y=np.zeros(n, np.int32),
+        train_mask=np.zeros(n, bool), val_mask=np.zeros(n, bool),
+        test_mask=np.zeros(n, bool), n_vocab=n // 2, n_docs=n - n // 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [100, 43])
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("empty", [False, True], ids=["spread", "empty_shard"])
+def test_kernel_on_per_shard_plans(cuda, d, h, dtype, empty):
+    from pytextgcn_tpu_torch.parallel import Mesh, build_halo_adj, build_sharded_adj
+
+    g = _shard_graph(dst_below=1000 if empty else None, seed=d)
+    for r in range(d):
+        mesh = Mesh(None, r, d, cuda)
+        adj = build_sharded_adj(g, mesh, use_pallas=True)
+        halo = build_halo_adj(g, mesh, use_pallas=True)
+        assert (adj.n_edges == 0) == (empty and r * adj.rows_per >= 1000)
+        plans = [adj.plan_fwd, adj.plan_bwd, halo.plan_own.fwd, halo.plan_own.bwd]
+        plans += [p for rem in halo.plan_rem for p in (rem.fwd, rem.bwd)]
+        for csr in plans:
+            x32 = torch.randn(csr.n_cols, h, device=cuda)
+            x = x32.to(dtype)
+            got = spmm_cuda.spmm_csr_kernel(csr, x)
+            assert got.shape == (csr.n_rows, h) and got.dtype == torch.float32
+            _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x),
+                          spmm_cuda.spmm_csr_abs(csr, x))
+            if dtype == torch.bfloat16:
+                _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x32),
+                              spmm_cuda.spmm_csr_abs(csr, x32), rtol=2.0**-8)
+            if csr.n_edges == 0:
+                assert not got.any()

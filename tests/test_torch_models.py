@@ -298,10 +298,11 @@ def test_share_adjacency_only_with_equal_aggregation():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--train-sharding", "allgather"], ["--train-ep", "true", "--train-n-devices", "2"],
+    ["--train-sharding", "hybrid"], ["--train-ep", "true", "--train-n-devices", "2"],
     ["--train-batch-size", "1", "--train-hybrid-k", "128"],
-    ["--train-sharding", "halo", "--train-n-devices", "2"],
-    ["--train-sharding", "halo"], ["--graph-backend", "sharded"],
+    ["--train-sharding", "halo", "--train-n-devices", "2", "--train-masked-head", "true"],
+    ["--train-sharding", "allgather", "--train-n-devices", "2", "--train-hybrid-k", "128"],
+    ["--graph-backend", "sharded"],
     ["--train-ep", "true", "--train-n-devices", "4"],
 ])
 def test_check_ported_still_refuses(flag):

@@ -77,9 +77,10 @@ def test_flat_experiment_writes_results_row(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--graph-backend", "sharded"], ["--train-sharding", "allgather"],
-    ["--train-sharding", "halo"], ["--train-ep", "true", "--train-n-devices", "2"],
-    ["--train-sharding", "allgather", "--train-n-devices", "2"],
+    ["--graph-backend", "sharded"], ["--train-sharding", "hybrid"],
+    ["--train-sharding", "halo", "--train-masked-head", "true", "--train-n-devices", "2"],
+    ["--train-ep", "true", "--train-n-devices", "2"],
+    ["--train-sharding", "allgather", "--train-n-devices", "2", "--train-batch-size", "8"],
     ["--train-batch-size", "8", "--train-masked-head", "true"],
 ])
 def test_flat_experiment_refuses_unported_settings(flag):
