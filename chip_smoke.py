@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --profile OUT_DIR    # also torch.profiler tables of the
                                                # CSR and hybrid train steps
     python3 chip_smoke.py --nccl-ranks 4       # on 4 cards: only phase 15's two
-                                               # partitions over NCCL, a rank a card
+                                               # partitions and phase 16's modes over
+                                               # NCCL, a rank a card
 
 Phases, each fatal (exit code 1, no result line) when it fails:
 
@@ -165,6 +166,23 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    plain version with its times, and an empty shard's plans; the halo's comm
    rows against the all-gather's at D = 2, 4 and 8.
 
+16. the sharded hybrid, the sharded masked head and tensor-parallel EGCN
+   (``parallel/``) on phase 2's graph, from phase 9's initial parameters,
+   ``HYBRID_EPOCHS`` epochs a run, each mode against its single-device run
+   (losses within 2e-4 relative; TP also 2e-5 absolute): the sharded hybrid
+   at K = 4096 with the dual kernel in f32 and in bf16 and with two
+   ``torch.mm``, and at ``'auto'`` (the K it picks printed); the masked head
+   under 'halo' and under 'hybrid'; EGCN (embedding 2000) cut by columns
+   over a ``tp_mesh``. (a) world 1 over NCCL, (b) two ranks sharing the
+   card over gloo: each rank's operator and launches exact (the dual
+   kernel once an application of the full hybrid, the CSR kernel on each
+   halo plan), the ranks' parameters equal, the rows the collectives moved
+   equal to ``comm_rows_per_device``, the step per mode; then each rank's
+   dual-kernel launch on its real D block (f32 and bf16, [38,962, 4096] at
+   two ranks) and its residual CSR plans against their plain versions with
+   their times, bounds and library calls, and the sharded hybrid's comm
+   rows beside phase 15's halo and all-gather at D = 2, 4 and 8.
+
 It prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -214,7 +232,7 @@ _T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    if msg.startswith("[") and "/15]" in msg[:7]:  # a phase's header: when it began
+    if msg.startswith("[") and "/16]" in msg[:7]:  # a phase's header: when it began
         msg = f"{msg.split(']', 1)[0]} at {time.perf_counter() - _T0:.1f}s]{msg.split(']', 1)[1]}"
     print(msg, flush=True)
 
@@ -436,7 +454,7 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     n, e = g.n_nodes, g.n_edges
-    log(f"[10/15] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
+    log(f"[10/16] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
         "level or member):")
     _, (cat1, cat2), _, _ = common.load_corpus(cfg, levels=["Cat1", "Cat2"])
     if not np.array_equal(cat2, np.asarray(g.y)[g.n_vocab:]):
@@ -657,7 +675,7 @@ def operator_options(args, card, g, n_classes: int, hidden: int, adj, counters, 
     out, errs, rows_json = {}, [], []
     y = torch.as_tensor(g.y, dtype=torch.int64, device=dev)
     train_mask = torch.as_tensor(g.train_mask, device=dev)
-    log(f"[11/15] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
+    log(f"[11/16] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
 
     # ---- the masked head through the flat experiment
     mcfg = parse_config(base + ["--train-masked-head", "true"])
@@ -1149,7 +1167,7 @@ def mlp_and_last_options(args, card, g, n_classes: int, hidden: int, counters, g
     epochs = MODEL_EPOCHS
     n, e = g.n_nodes, g.n_edges
     out, errs = {}, []
-    log(f"[12/15] the MLP baselines, the CSV loaders and the last trainer options "
+    log(f"[12/16] the MLP baselines, the CSV loaders and the last trainer options "
         f"({epochs} epochs a path):")
 
     # ---- the MLP experiment at the synthetic-amazon scale
@@ -1484,7 +1502,7 @@ def counting_and_minibatching(args, card, cfg, g, n_classes: int, adj, counters,
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     out, errs = {}, []
-    log("[13/15] device counting and mini-batching:")
+    log("[13/16] device counting and mini-batching:")
 
     # ---- device counting against native on the corpus of phase 2
     gc = cfg.graph
@@ -1948,7 +1966,7 @@ def sharded_launches(plans_a_spmm: int, epochs: int) -> int:
 
 def train_step_fn(trainer, g):
     """The trainer's train step on its own operator and rows, as ``fit``
-    runs it (phase 9's timing of a step)."""
+    runs it (phase 9's timing of a step), the masked head's included."""
     import torch
 
     from pytextgcn_tpu_torch.train.metrics import global_count
@@ -1957,7 +1975,11 @@ def train_step_fn(trainer, g):
     y = trainer._local(trainer._tensor(g.y, torch.int64))
     mask = trainer._local(trainer._tensor(g.train_mask))
     denom = global_count(mask, trainer._group()) if trainer.halo else None
-    return lambda: trainer._train_step(adj, feats, y, mask, denom=denom)
+    adj_out = trainer._prepare_restricted(g) if trainer.masked_head else None
+    if adj_out is not None and trainer.mesh is None:  # one device: the train rows only
+        y = y.index_select(0, adj_out.rows)
+        mask = torch.ones(adj_out.m, dtype=torch.bool, device=trainer.device)
+    return lambda: trainer._train_step(adj, feats, y, mask, adj_out, denom=denom)
 
 
 def same_metrics(got: dict, want: dict) -> bool:
@@ -2028,9 +2050,9 @@ def partition_rank(rank: int, world: int, address: str, backend: str, graph_path
     dist.destroy_process_group()
 
 
-def run_ranks(world: int, backend: str, g, cfg, n_classes: int):
-    """``world`` ranks of :func:`partition_rank` on ``g``; returns each
-    rank's results and the seconds they took."""
+def run_ranks(world: int, backend: str, g, cfg, n_classes: int, target=None):
+    """``world`` ranks of ``target`` (:func:`partition_rank` by default) on
+    ``g``; returns each rank's results and the seconds they took."""
     import dataclasses
 
     import torch
@@ -2041,7 +2063,7 @@ def run_ranks(world: int, backend: str, g, cfg, n_classes: int):
         t0 = time.perf_counter()
         try:
             torch.multiprocessing.spawn(
-                partition_rank, nprocs=world, join=True,
+                target or partition_rank, nprocs=world, join=True,
                 args=(world, f"127.0.0.1:{free_port()}", backend, gpath,
                       dataclasses.asdict(cfg.model), n_classes, tmp))
         except Exception as exc:  # a rank raised: its traceback is in the message
@@ -2128,7 +2150,7 @@ def partitioned_training(card, cfg, g, n_classes: int, widths, gen, dev):
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     epochs, n = SHARDED_EPOCHS, g.n_nodes
-    log(f"[15/15] graph-partitioned training on phase 2's graph (N={n}, E={g.n_edges}), "
+    log(f"[15/16] graph-partitioned training on phase 2's graph (N={n}, E={g.n_edges}), "
         f"{epochs} epochs a run, phase 9's initial parameters:")
     out, errs = {}, []
 
@@ -2251,6 +2273,356 @@ def partitioned_training(card, cfg, g, n_classes: int, widths, gen, dev):
     return out, errs, plan_rows
 
 
+# ------------------------------------------------------------ phase 16
+
+HYBRID_EPOCHS = 5  # epochs of each phase-16 training run
+# a phase-16 run's losses against its single-device run's, relative: the
+# band of tests/test_restricted_sharded.py:105-129 (the decomposition sums
+# in another order, the f32 dual kernel in three TF32 passes); TP's, the
+# band of tests/test_tensor_parallel.py:63-85 (rtol 2e-4, atol 2e-5)
+HYBRID_RTOL, TP_ATOL = 2e-4, 2e-5
+# the bf16 hybrid against the single device's: the sharded one rounds its
+# self term's product to bf16 (as the JAX package's does), the single
+# device keeps it f32, a relative 2^-9 an element
+HYBRID_BF16_RTOL = 2e-3
+# name -> (model, Trainer options over ranks, options of its single-device
+# reference run). The bf16 hybrid is held against the single device's bf16
+# hybrid at the same K (the same bf16 operands, f32 sums).
+PHASE16_MODES = {
+    "hybrid_f32_fused": ("gcn", dict(halo=True, hybrid_k=HOT_K, hybrid_fused=True), {}),
+    "hybrid_bf16_fused": ("gcn", dict(halo=True, hybrid_k=HOT_K, hybrid_fused=True,
+                                      pallas_dtype="bfloat16"),
+                          dict(hybrid_k=HOT_K, hybrid_fused=True, pallas_dtype="bfloat16")),
+    "hybrid_f32": ("gcn", dict(halo=True, hybrid_k=HOT_K), {}),
+    "hybrid_auto": ("gcn", dict(halo=True, hybrid_k="auto"), {}),
+    "masked_halo": ("gcn", dict(halo=True, masked_head=True), dict(masked_head=True)),
+    "masked_hybrid": ("gcn", dict(halo=True, hybrid_k=HOT_K, hybrid_fused=True,
+                                  masked_head=True), dict(masked_head=True)),
+    "egcn_tp": ("egcn", dict(tp=True), {}),
+}
+
+
+def phase16_launches(name: str, world: int, dual_on: bool) -> dict:
+    """Kernel launches of ``fit_counted`` for a 2-layer model in a phase-16
+    mode on one rank: every SpMM application (2 forward and 2 backward a
+    train step, 2 forward in each of the E + 1 forward-only passes) runs the
+    CSR kernel on the halo's D plans (the own block and D - 1 ring steps;
+    under TP the single-device plan), the masked head's on its head; with
+    the dual kernel on, each application of the full hybrid operator
+    launches it once (the masked head trains on the full operator in its
+    first layer only)."""
+    kind, opts, _ = PHASE16_MODES[name]
+    e = HYBRID_EPOCHS
+    masked = opts.get("masked_head", False)
+    full_apps = (2 if masked else 4) * e + 2 * (e + 1)
+    plans = 1 if opts.get("tp") else world
+    return {"csr": plans * (4 * e + 2 * (e + 1)), "dual": full_apps if dual_on else 0}
+
+
+def full_digest(model) -> str:
+    """sha256 of the parameters in the single-device layout (a TP rank
+    gathers its blocks: a collective)."""
+    import hashlib
+
+    from pytextgcn_tpu_torch.models import export_params
+    from pytextgcn_tpu_torch.parallel.tensor import gather_params
+    from pytextgcn_tpu_torch.train.checkpoint import flatten
+
+    h = hashlib.sha256()
+    for leaf in flatten(gather_params(model, export_params(model))):
+        h.update(leaf.tobytes())
+    return h.hexdigest()
+
+
+def run_mode16(name: str, g, model_cfg: dict, n_classes: int, kw: dict) -> dict:
+    """One phase-16 run (``kw``: the trainer's device or meshes, and its
+    options): the operator's build, ``fit_counted`` with the dual kernel's
+    counts set to 0 just before too, the comm rows its collectives moved a
+    forward application, the step time."""
+    import torch
+
+    from pytextgcn_tpu_torch.config import ModelConfig, make_model
+    from pytextgcn_tpu_torch.ops import fused_dual as fd
+    from pytextgcn_tpu_torch.train import Trainer
+
+    kind = PHASE16_MODES[name][0]
+    mcfg = ModelConfig(**{**model_cfg, "model": kind})
+    model = make_model(mcfg, g.in_dim, n_classes, generator=torch.Generator().manual_seed(3))
+    trainer = Trainer(model, lr=0.05, **kw)
+    t0 = time.perf_counter()
+    adj, _ = trainer.prepare(g)
+    head = trainer._prepare_restricted(g) if trainer.masked_head else None
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    wired = [a for a in (adj, getattr(adj, "halo_res", None)) if hasattr(a, "wire_rows")]
+    for a in wired:
+        a.wire_rows = 0
+    fd.fused_dual_kernel.launches = {}
+    losses, csr, shapes, metrics = fit_counted(trainer, g, n_classes, HYBRID_EPOCHS)
+    dual = dict(fd.fused_dual_kernel.launches)
+    fwd_apps = (1 if trainer.masked_head else 2) * HYBRID_EPOCHS + 2 * (HYBRID_EPOCHS + 1)
+    head_op = getattr(head, "op", head)
+    out = {
+        "losses": losses, "launches": {"csr": csr, **{f"dual_{k}": v for k, v in dual.items()}},
+        "metrics": metrics, "params": full_digest(model), "build_s": build_s,
+        "operator": type(adj).__name__, "k": int(getattr(adj, "k", 0)),
+        "head": None if head is None else f"{type(head).__name__}/{type(head_op).__name__}",
+        "head_k": int(getattr(head_op, "k", 0)),
+        "comm_rows": getattr(adj, "comm_rows_per_device", None),
+        "wire_rows": sum(a.wire_rows for a in wired) / fwd_apps if wired else None,
+        "rows_per": getattr(adj, "rows_per", None),
+        "step_ms": host_step_ms(train_step_fn(trainer, g), reps=10),
+    }
+    del trainer, model, adj, head
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_rank(rank: int, world: int, address: str, backend: str, graph_path: str,
+                model_cfg: dict, n_classes: int, out_dir: str) -> None:
+    """One rank of phase 16 (``torch.multiprocessing``): every mode of
+    ``PHASE16_MODES`` from phase 9's initial parameters, written to
+    ``out_dir/rank{rank}.json``. Over gloo the ranks share ``cuda:0``, over
+    NCCL each has its card."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from pytextgcn_tpu_torch.core.graph import TextGraph
+    from pytextgcn_tpu_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = "cuda:0" if backend == "gloo" else "cuda"
+    init_distributed(address, world, rank, backend=backend, device=device, timeout_s=600)
+    mesh = make_mesh(world, device=device)
+    tp_mesh = make_mesh(world, axis="model", device=device)
+    g = TextGraph.load(graph_path)
+    out = {"backend": mesh.backend, "device": str(mesh.device), "staged": mesh.staged}
+    for name, (_, opts, _) in PHASE16_MODES.items():
+        kw = dict(tp_mesh=tp_mesh) if opts.get("tp") else dict(
+            mesh=mesh, **{k: v for k, v in opts.items()})
+        out[name] = run_mode16(name, g, model_cfg, n_classes, kw)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase16_references(g, model_cfg: dict, n_classes: int, dev) -> dict:
+    """Each mode's single-device reference run, on ``dev`` (runs shared
+    between modes with the same reference)."""
+    refs, by_opts = {}, {}
+    for name, (kind, _, ref_opts) in PHASE16_MODES.items():
+        key = (kind, tuple(sorted(ref_opts.items())))
+        if key not in by_opts:
+            by_opts[key] = run_mode16(name, g, model_cfg, n_classes, dict(device=dev, **ref_opts))
+            r = by_opts[key]
+            log(f"  single device, {kind} {ref_opts or 'CSR kernel'}: losses "
+                f"{[round(v, 6) for v in r['losses']]}, launches {r['launches']}, step "
+                f"{r['step_ms']:.3f} ms")
+        refs[name] = by_opts[key]
+    return refs
+
+
+def check_mode16(tag: str, name: str, per_rank: list, ref: dict) -> dict:
+    """One phase-16 mode on every rank: the operator asked for, launches
+    exact, comm rows moved as priced (D >= 2), the same parameters on every
+    rank, the losses within tolerance of the single-device run. Returns
+    the summary."""
+    import numpy as np
+
+    world = len(per_rank)
+    kind, opts, _ = PHASE16_MODES[name]
+    first = per_rank[0]
+    hybrid_k = opts.get("hybrid_k")
+    if hybrid_k == "auto":
+        want_op = "HybridShardedAdj" if first["k"] else "HaloAdj"
+    else:
+        want_op = ("HybridShardedAdj" if hybrid_k else "HaloAdj") if opts.get("halo") else "NormAdj"
+    if any(r["operator"] != want_op for r in per_rank) or (
+            isinstance(hybrid_k, int) and first["k"] != hybrid_k):
+        fail(f"{tag} {name}: operators {[(r['operator'], r['k']) for r in per_rank]}, "
+             f"expected {want_op} K={hybrid_k}")
+    dual_on = want_op == "HybridShardedAdj" and bool(opts.get("hybrid_fused"))
+    want = phase16_launches(name, world, dual_on)
+    variant = "dual_bf16" if opts.get("pallas_dtype") == "bfloat16" else "dual_f32"
+    got = [{"csr": r["launches"]["csr"], "dual": sum(v for k, v in r["launches"].items()
+                                                     if k.startswith("dual"))}
+           for r in per_rank]
+    if got != [want] * world or (want["dual"] and any(
+            r["launches"].get(variant) != want["dual"] for r in per_rank)):
+        fail(f"{tag} {name}: launches per rank {[r['launches'] for r in per_rank]}, expected "
+             f"{want} ({variant})")
+    if len({r["params"] for r in per_rank}) != 1:
+        fail(f"{tag} {name}: the ranks' parameters differ after training")
+    rtol = HYBRID_BF16_RTOL if opts.get("pallas_dtype") == "bfloat16" else HYBRID_RTOL
+    atol = TP_ATOL if opts.get("tp") else 0.0
+    rels = []
+    for i, r in enumerate(per_rank):
+        a, b = np.asarray(r["losses"]), np.asarray(ref["losses"])
+        ok = a.shape == b.shape and np.isfinite(a).all() and bool(
+            (np.abs(a - b) <= atol + rtol * np.abs(b)).all())
+        rels.append(float(np.max(np.abs(a - b) / np.abs(b))))
+        if not ok:
+            fail(f"{tag} {name} rank {i}: losses {r['losses']} against the single-device "
+                 f"{ref['losses']} (rtol {rtol:g}, atol {atol:g})")
+    if world >= 2 and first["wire_rows"] is not None and any(
+            r["wire_rows"] != r["comm_rows"] for r in per_rank):
+        fail(f"{tag} {name}: rows moved a forward application "
+             f"{[r['wire_rows'] for r in per_rank]} against comm_rows_per_device "
+             f"{[r['comm_rows'] for r in per_rank]}")
+    log(f"  {tag} {name}: {first['operator']} K={first['k']}"
+        + (f", head {first['head']} K={first['head_k']}" if first["head"] else "")
+        + f"; launches per rank {[r['launches'] for r in per_rank]} (expected {want}); "
+        f"losses max rel diff {max(rels):.3e} against the single device (rtol {rtol:g}"
+        + (f", atol {atol:g}" if atol else "") + f"); step ms per rank "
+        f"{[round(r['step_ms'], 3) for r in per_rank]} (single device {ref['step_ms']:.3f}); "
+        f"comm rows a rank and SpMM {first['comm_rows']} (moved: "
+        f"{[r['wire_rows'] for r in per_rank]}); build s "
+        f"{[round(r['build_s'], 2) for r in per_rank]}; test acc "
+        f"{[round(r['metrics']['accuracy'], 4) for r in per_rank]} (single device "
+        f"{ref['metrics']['accuracy']:.4f})")
+    return {"operator": first["operator"], "k": first["k"], "head": first["head"],
+            "head_k": first["head_k"], "launches": [r["launches"] for r in per_rank],
+            "expected_launches": want, "max_rel_loss_diff": max(rels),
+            "step_ms": [r["step_ms"] for r in per_rank], "single_step_ms": ref["step_ms"],
+            "comm_rows": first["comm_rows"], "wire_rows": [r["wire_rows"] for r in per_rank],
+            "build_s": [r["build_s"] for r in per_rank]}
+
+
+def sharded_hybrid_training(card, cfg, g, n_classes: int, widths, gen, dev, halo_comm):
+    """Phase 16: the sharded hybrid, the sharded masked head and TP EGCN
+    (parallel/) on phase 2's graph, from phase 9's initial parameters, each
+    mode against its single-device run: (a) world 1 over NCCL on the card;
+    (b) ``SHARED_RANKS`` ranks sharing the card over gloo; then each rank's
+    dual-kernel launch (f32 and bf16) on its real D block and its residual
+    CSR plans against their plain versions, with their times, and the comm
+    rows at phase 15's D (``halo_comm``: its halo and all-gather rows). Each
+    fatal. Returns (the summary, the kernels' errors, their per-rank rows)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from pytextgcn_tpu_torch.ops import fused_dual as fd
+    from pytextgcn_tpu_torch.ops import spmm_cuda
+    from pytextgcn_tpu_torch.parallel import (Mesh, build_hybrid_sharded_adj, init_distributed,
+                                              make_mesh)
+
+    kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
+                          spmm_cuda.spmm_csr_abs)
+    dual = fd.fused_dual_kernel
+    n = g.n_nodes
+    model_cfg = dataclasses.asdict(cfg.model)
+    log(f"[16/16] the sharded hybrid (K={HOT_K}), the sharded masked head and TP EGCN "
+        f"(embedding {cfg.model.embedding_dim}) on phase 2's graph (N={n}, E={g.n_edges}), "
+        f"{HYBRID_EPOCHS} epochs a run, phase 9's initial parameters:")
+    out = {"modes": list(PHASE16_MODES)}
+    refs = phase16_references(g, model_cfg, n_classes, dev)
+
+    # ---- (a) world 1 over NCCL
+    init_distributed(backend="nccl", device=dev)
+    mesh, tp_mesh = make_mesh(1, device=dev), make_mesh(1, axis="model", device=dev)
+    world1 = {}
+    for name, (_, opts, _) in PHASE16_MODES.items():
+        kw = dict(tp_mesh=tp_mesh) if opts.get("tp") else dict(mesh=mesh, **opts)
+        r = run_mode16(name, g, model_cfg, n_classes, kw)
+        world1[name] = check_mode16(f"(a) world 1 over {mesh.backend}", name, [r], refs[name])
+        if name == "hybrid_auto":
+            log(f"  (a) 'auto' picked K={r['k']} ({r['operator']}) at H={cfg.model.n_hidden}")
+    dist.destroy_process_group()
+    out["world1"] = world1
+
+    # ---- (b) ranks sharing the card over gloo
+    ranks, secs = run_ranks(SHARED_RANKS, "gloo", g, cfg, n_classes, target=hybrid_rank)
+    tag = f"(b) {SHARED_RANKS} ranks sharing one card over gloo"
+    out["shared_card"] = {name: check_mode16(tag, name, [r[name] for r in ranks], refs[name])
+                          for name in PHASE16_MODES}
+    out["shared_card"]["seconds"] = secs
+    out["shared_card"]["label"] = ("ranks sharing one card over gloo (the exchange through "
+                                   "host memory): no prediction of NCCL across cards")
+    out["single_device"] = {name: {"losses": r["losses"], "step_ms": r["step_ms"]}
+                            for name, r in refs.items()}
+
+    # ---- each rank's kernels at its real shapes, 2 ranks
+    errs = {"f32": [], "bf16": [], "csr": []}
+    rows = {"dual": [], "csr": []}
+    for r in range(SHARED_RANKS):
+        rank_mesh = Mesh(None, r, SHARED_RANKS, dev)
+        for dtype, variant in (("float32", fd.F32), ("bfloat16", fd.BF16)):
+            hadj = build_hybrid_sharded_adj(g, rank_mesh, hot_k=HOT_K, compute_dtype=dtype,
+                                            fused=True)
+            d = hadj.d_blk
+            rp, k = d.shape
+            key = fd.VARIANT_NAMES[variant]
+            for h in widths:
+                x = torch.randn(rp, h, generator=gen, device=dev).to(d.dtype)
+                xh = torch.randn(k, h, generator=gen, device=dev).to(d.dtype)
+                got = dual(variant, d, None, x, xh)
+                want = (fd.dual_reference_tf32x3(d, x, xh) if variant == fd.F32
+                        else fd.dual_reference(variant, d, None, x, xh))
+                scale = fd.dual_abs(variant, d, None, x, xh)
+                label = f"rank {r} of {SHARED_RANKS}, {key} dual kernel D [{rp}, {k}] H={h}"
+                errs[key] += [compare(f"{label} out", got[0], want[0], scale[0], F32_RTOL),
+                              compare(f"{label} hot", got[1], want[1], scale[1], F32_RTOL)]
+                n_bytes, flops, bound, bound_by = dual_work(variant, rp, k, h)
+                row = {"rank": r, "variant": key, "shape": [rp, k], "h": h,
+                       "ms": time_ms(lambda: dual(variant, d, None, x, xh), 20),
+                       "plain_ms": time_ms(lambda: fd.dual_reference_tf32x3(d, x, xh)
+                                           if variant == fd.F32
+                                           else fd.dual_reference(variant, d, None, x, xh), 3,
+                                           warmup=1),
+                       "library_ms": time_ms(lambda: (torch.mm(d, xh), torch.mm(d.t(), x)), 20),
+                       "bound_ms": bound, "bound_by": bound_by, "bytes": n_bytes,
+                       "flops": flops}
+                rows["dual"].append(row)
+                log(f"    {key} dual kernel rank {r} D [{rp}, {k}] H={h}: {row['ms']:.4f} ms, "
+                    f"bound {bound:.4f} ms by {bound_by}, plain {row['plain_ms']:.4f}, two "
+                    f"torch.mm {row['library_ms']:.4f}")
+            if variant == fd.F32:  # the residual's plans (the f32 operator's)
+                res = hadj.halo_res
+                plans = {"residual own fwd": res.plan_own.fwd, "residual own bwd": res.plan_own.bwd,
+                         "residual remote fwd": res.plan_rem[0].fwd,
+                         "residual remote bwd": res.plan_rem[0].bwd}
+                for pname, csr in plans.items():
+                    for h in widths:
+                        x = torch.randn(csr.n_cols, h, generator=gen, device=dev)
+                        errs["csr"].append(compare(
+                            f"rank {r} of {SHARED_RANKS}, {pname} [{csr.n_rows}, {csr.n_cols}] "
+                            f"H={h}", kernel(csr, x), plain(csr, x), mag(csr, x), F32_RTOL))
+                        lib = sparse_csr(csr)
+                        n_bytes, flops, bound, bound_by = spmm_work(csr, h, 4)
+                        row = {"rank": r, "plan": pname, "shape": [csr.n_rows, csr.n_cols],
+                               "edges": csr.n_edges, "h": h,
+                               "ms": time_ms(lambda: kernel(csr, x), 30),
+                               "plain_ms": time_ms(lambda: plain(csr, x), 3, warmup=1),
+                               "library_ms": time_ms(lambda: torch.sparse.mm(lib, x), 10),
+                               "bound_ms": bound, "bound_by": bound_by}
+                        rows["csr"].append(row)
+                        log(f"    {pname} rank {r} H={h}: kernel {row['ms']:.4f} ms, bound "
+                            f"{bound:.4f} ms by {bound_by}, plain {row['plain_ms']:.4f}, "
+                            f"torch.sparse.mm {row['library_ms']:.4f} ({csr.n_edges} edges)")
+            del hadj, d
+            torch.cuda.empty_cache()
+
+    # ---- the sharded hybrid's comm rows against phase 15's halo and all-gather
+    comm = []
+    for row in halo_comm:
+        dd = row["d"]
+        hyb = build_hybrid_sharded_adj(g, Mesh(None, 0, dd, dev), hot_k=HOT_K, use_pallas=False)
+        comm.append({**row, "hybrid_rows": hyb.comm_rows_per_device, "k_max": hyb.k_max,
+                     "residual_halo_rows": hyb.halo_res.comm_rows_per_device})
+        log(f"  comm rows a rank and SpMM at D={dd}: sharded hybrid K={HOT_K} "
+            f"{hyb.comm_rows_per_device} (hot all_gather {(dd - 1) * hyb.k_max}, the partial's "
+            f"all_reduce {2 * HOT_K * (dd - 1) // dd}, residual halo "
+            f"{hyb.halo_res.comm_rows_per_device}) against the halo's {row['halo_rows']} and "
+            f"the all-gather's {row['allgather_rows']}")
+        del hyb
+        torch.cuda.empty_cache()
+    out["comm_rows"] = comm
+    return out, errs, rows
+
+
 def main_config(args, hidden: int):
     """Phase 2's flat configuration: synthetic-amazon at ``args.n_docs``
     documents, the CSR kernel."""
@@ -2266,13 +2638,17 @@ def main_config(args, hidden: int):
 
 
 def nccl_ranks(args) -> int:
-    """``--nccl-ranks N``: phase 15's two partitions over NCCL on phase 2's
-    graph, one rank a card on N cards (``torch.multiprocessing``), against
-    the single-device CSR path on card 0, each check fatal."""
+    """``--nccl-ranks N``: phase 15's two partitions and phase 16's modes
+    over NCCL on phase 2's graph, one rank a card on N cards
+    (``torch.multiprocessing``), against the single-device runs on card 0,
+    each check fatal."""
+    import dataclasses
+
     import torch
 
     from pytextgcn_tpu_torch.config import make_model
     from pytextgcn_tpu_torch.experiments import flat
+    from pytextgcn_tpu_torch.ops import fused_dual as fd
     from pytextgcn_tpu_torch.ops import spmm_cuda
     from pytextgcn_tpu_torch.train import Trainer
 
@@ -2303,6 +2679,15 @@ def nccl_ranks(args) -> int:
     summary = check_ranks("(nccl)", f"{world} ranks over NCCL, one a card", ranks, want,
                           want_metrics, card)
     summary.update(seconds=secs, single_step_ms=single_ms, cards=cards)
+    # phase 16's modes over NCCL, each against its single-device run on card 0
+    fd.fused_dual_kernel.build()
+    refs = phase16_references(g, dataclasses.asdict(cfg.model), n_classes,
+                              torch.device("cuda", 0))
+    ranks16, secs16 = run_ranks(world, "nccl", g, cfg, n_classes, target=hybrid_rank)
+    summary["phase16"] = {name: check_mode16(f"(nccl) {world} ranks", name,
+                                             [r[name] for r in ranks16], refs[name])
+                          for name in PHASE16_MODES}
+    summary["phase16"]["seconds"] = secs16
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(json.dumps({"nccl_ranks": summary}), flush=True)
     print(card, flush=True)
@@ -2322,8 +2707,8 @@ def main(argv=None) -> int:
     ap.add_argument("--allocator-timing", action="store_true",
                     help="only the graph and plan builds, timed (phase 14)")
     ap.add_argument("--nccl-ranks", type=int, default=0,
-                    help="only phase 15's partitions over NCCL, one rank a card on this "
-                         "many cards")
+                    help="only phases 15 and 16 over NCCL, one rank a card on this many "
+                         "cards")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "pytextgcn_tpu_torch")):
@@ -2384,7 +2769,7 @@ def main(argv=None) -> int:
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/15] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
+    log(f"[1/16] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
         f"kernel, four of the dual kernel) and the native library in "
         f"{time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
@@ -2399,7 +2784,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     g, n_classes = flat.build_graph(cfg)
     n, e = g.n_nodes, g.n_edges
-    log(f"[2/15] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
+    log(f"[2/16] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
         f"(vocab {g.n_vocab}, docs {g.n_docs}), {n_classes} classes")
     widths = (hidden, n_classes)
 
@@ -2407,7 +2792,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     adj = NormAdj.from_graph(g, use_pallas=True, device=dev)
     plan = adj.plan
-    log(f"[3/15] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
+    log(f"[3/16] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
         f"segments, {plan.fwd.n_partials} partial rows (fwd); checks:")
     gen = torch.Generator(device=dev).manual_seed(0)
     f32_errs, bf16_errs = [], []
@@ -2468,7 +2853,7 @@ def main(argv=None) -> int:
     evals = sum("val_f1" in rec for rec in hist) + 1  # + evaluate()
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
-    log(f"[4/15] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
+    log(f"[4/16] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
         f"passes, kernel launches {launches} (expected {expected}); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; test acc {res['accuracy']:.4f}, "
         f"macro-F1 {res['f1_macro']:.4f}; peak memory {peak_gb:.2f} GB")
@@ -2523,14 +2908,14 @@ def main(argv=None) -> int:
     plan_s = time.perf_counter() - t0
     k = hplan.k
     d_bytes = 2 * hplan.d_full.numel() * hplan.d_full.element_size()
-    log(f"[5/15] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
+    log(f"[5/16] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
         f"pair of {d_bytes / 1e6:.1f} MB), {hplan.n_resid} residual edges "
         f"({hplan.n_resid / e:.1%} of E) on the CSR kernel")
     if hplan.d_lo is None or tuple(hplan.d_full.shape) != (n, k) or k != HOT_K:
         fail(f"hybrid plan: K={k}, D {tuple(hplan.d_full.shape)}, split {hplan.d_lo is not None}")
 
     # ------------------------------------------------------------ 6. dual kernel
-    log("[6/15] the dual kernel against its plain version (tolerance relative to "
+    log("[6/16] the dual kernel against its plain version (tolerance relative to "
         "|D| @ |xh| and |D|^T @ |x|):")
     pair = (hplan.d_full, hplan.d_lo)
     d32 = pair[0].float() + pair[1].float()  # the f32 D of the f32 variant
@@ -2602,7 +2987,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 7. hybrid SpMM
-    log(f"[7/15] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
+    log(f"[7/16] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
         f"of |A_hat| @ |x|):")
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev, requires_grad=True)
@@ -2640,7 +3025,7 @@ def main(argv=None) -> int:
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
     path_launches = {"split": hcounts["dual"].get("split", 0)}
-    log(f"[8/15] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
+    log(f"[8/16] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
         f"{evals} forward-only passes; dual kernel launches {hcounts['dual']}, CSR kernel "
         f"launches {hcounts['csr']} (expected {expected} each); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; test acc {hres['accuracy']:.4f}, macro-F1 {hres['f1_macro']:.4f}; "
@@ -2689,7 +3074,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 9. times
-    log(f"[9/15] times on {card} (CUDA events, warm, per launch):")
+    log(f"[9/16] times on {card} (CUDA events, warm, per launch):")
     by_width = []
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev)
@@ -2883,7 +3268,7 @@ def main(argv=None) -> int:
     f32_errs += slice10_errs
 
     # ------------------------------------------------------------ 14. tooling, drivers
-    log("[14/15] tooling and the last experiment scripts:")
+    log("[14/16] tooling and the last experiment scripts:")
     probe_out, pr = probe_against_spec(card, dev)
     slice11 = tooling_and_drivers(args, card, g, dev, pr)
     slice11["probe"] = probe_out
@@ -2892,6 +3277,20 @@ def main(argv=None) -> int:
     slice12, slice12_errs, shard_rows = partitioned_training(card, cfg, g, n_classes, widths,
                                                              gen, dev)
     f32_errs += slice12_errs
+
+    # ------------------------------------------------------------ 16. sharded hybrid, TP
+    slice13, slice13_errs, rank_rows = sharded_hybrid_training(
+        card, cfg, g, n_classes, widths, gen, dev, slice12["comm_rows"])
+    f32_errs += slice13_errs["csr"]
+    dual_errs["f32"] += slice13_errs["f32"]
+    dual_errs["bf16"] += slice13_errs["bf16"]
+
+    def launches16(key):
+        """Phase 16's launches of a kernel ('csr', 'dual_f32', 'dual_bf16')
+        by group and mode, a list over the ranks."""
+        return {group: {mode: [r.get(key, 0) for r in res["launches"]]
+                        for mode, res in slice13[group].items() if isinstance(res, dict)}
+                for group in ("world1", "shared_card")}
 
     def dual_entry(key, replaces, path):
         rows = dual_rows[key]
@@ -2955,6 +3354,9 @@ def main(argv=None) -> int:
             "flat_cli_halo": slice12["flat_cli"]["launches"]},
         "per_shard_plans": shard_rows,
         "partitioned_training": slice12,
+        "launches_sharded_hybrid": launches16("csr"),
+        "sharded_hybrid_residual_plans": rank_rows["csr"],
+        "sharded_hybrid_training": slice13,
     },
         {**dual_entry("split", "pytextgcn_tpu/ops/fused_dual.py:185",
                       f"flat.run --train-hybrid-k {HOT_K} (f32 split2, the default), "
@@ -2967,11 +3369,15 @@ def main(argv=None) -> int:
         {**dual_entry("f32", "pytextgcn_tpu/ops/fused_dual.py:53",
                       f"flat.run --train-hybrid-k {HOT_K} --train-hybrid-fused on "
                       "--train-hybrid-f32-mode highest, 3 epochs"),
-         "hot_reduction": hot_reduction["f32"], "timing_builds": limits["f32"]},
+         "hot_reduction": hot_reduction["f32"], "timing_builds": limits["f32"],
+         "launches_sharded_hybrid": launches16("dual_f32"),
+         "per_rank_d_block": [r for r in rank_rows["dual"] if r["variant"] == "f32"]},
         {**dual_entry("bf16", "pytextgcn_tpu/ops/fused_dual.py:53",
                       f"flat.run --train-hybrid-k {HOT_K} --train-hybrid-fused on "
                       "--train-pallas-dtype bfloat16, 3 epochs"),
-         "hot_reduction": hot_reduction["bf16"]},
+         "hot_reduction": hot_reduction["bf16"],
+         "launches_sharded_hybrid": launches16("dual_bf16"),
+         "per_rank_d_block": [r for r in rank_rows["dual"] if r["variant"] == "bf16"]},
         dual_entry("f32_t", "pytextgcn_tpu/ops/fused_dual.py:159",
                    "fused_dual_t forward and backward on the main path's D at both widths"),
     ]

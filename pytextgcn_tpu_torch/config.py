@@ -89,8 +89,8 @@ class TrainConfig:
     compile_cache: str = ".xla_cache"
     # the final layer aggregates into the train rows only (ops/restricted.py)
     masked_head: bool = False
-    # graph partition over ranks (parallel/): off | allgather | halo ('hybrid'
-    # is not ported yet, ROADMAP.md §1 item 4b); flat experiment only
+    # graph partition over ranks (parallel/): off | allgather | halo | hybrid
+    # (the sharded hybrid, on the halo's layout); flat experiment only
     sharding: str = "off"
     # ranks of --train-sharding, one a card (0: every visible card); the
     # ensemble across devices (--train-ep) is not ported yet (§1 item 4c)
@@ -253,18 +253,18 @@ def sharding_mode(cfg: TrainConfig) -> Optional[str]:
 def sharding_args(cfg: TrainConfig, hybrid_k, device=None) -> dict:
     """TrainConfig.sharding/n_devices -> Trainer kwargs: ``mesh`` and
     ``halo`` (the mesh over the process group this rank has joined, or a
-    group of one, ``parallel.make_mesh``) and ``hybrid_k`` (``hybrid_k``
-    when not sharded; the sharded modes are the pure partitions)."""
+    group of one, ``parallel.make_mesh``) and ``hybrid_k``: ``hybrid_k``
+    when not sharded, ``hybrid_k or 'auto'`` under 'hybrid' (the sharded
+    hybrid, on the halo's layout), None under 'allgather' and 'halo' (the
+    pure partitions; check_ported refuses an explicit K there)."""
     mode = sharding_mode(cfg)
     if mode is None:
         return {"hybrid_k": hybrid_k}
-    if mode == "hybrid":
-        raise SystemExit("--train-sharding hybrid: not ported to pytextgcn_tpu_torch yet "
-                         "(see ROADMAP.md §1 item 4b)")
     from .parallel import make_mesh
 
     return {"mesh": make_mesh(cfg.n_devices or None, device=device),
-            "halo": mode == "halo", "hybrid_k": None}
+            "halo": mode in ("halo", "hybrid"),
+            "hybrid_k": (hybrid_k or "auto") if mode == "hybrid" else None}
 
 
 def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = True,
@@ -276,9 +276,9 @@ def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = Tr
     ``--model-model mlp``); experiments/mlp.py passes False. ``minibatch``:
     the driver can mini-batch (``--train-batch-size > 0``); the hierarchy
     and MLP experiments pass False. ``sharding``: the experiment can partition
-    the graph over ranks (``--train-sharding allgather|halo``, the flat
-    experiment, as in the JAX package); the hierarchy and MLP experiments
-    pass False."""
+    the graph over ranks (``--train-sharding allgather|halo|hybrid``, the
+    flat experiment, as in the JAX package); the hierarchy and MLP
+    experiments pass False."""
     t = cfg.train
     if graph and cfg.model.model == "mlp":
         raise SystemExit("--model-model mlp: the TF-IDF + MLP baseline takes no graph; "
@@ -314,16 +314,22 @@ def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = Tr
                              "mini-batch step trains on subgraphs; ROADMAP.md)")
     if cfg.graph.backend == "sharded":
         missing.append("--graph-backend sharded (§1 item 4c)")
-    if sharded == "hybrid":
-        missing.append("--train-sharding hybrid (§1 item 4b)")
-    elif sharded is not None:
+    if sharded is not None:
         if not sharding:
             raise SystemExit(f"--train-sharding {t.sharding}: only the flat experiment partitions "
                              "the graph, as in the JAX package (ROADMAP.md)")
-        missing += [f"{flag} under --train-sharding (§1 item 4b)" for flag, on in (
-            ("--train-masked-head", t.masked_head),
-            (f"--train-hybrid-k {t.hybrid_k}", hybrid_k_arg(t) is not None),
-            (f"--train-plan-cache {t.plan_cache}", bool(t.plan_cache))) if on]
+        # options the partitioned run would not honour: the JAX package
+        # clears a hot-set size under 'allgather' and 'halo' and reads a plan
+        # cache only in the single-device operator; its sharded hybrid has no
+        # split2 mode
+        unrun = [flag for flag, on in (
+            (f"--train-hybrid-k {t.hybrid_k} (use --train-sharding hybrid)",
+             sharded != "hybrid" and hybrid_k_arg(t) is not None),
+            (f"--train-plan-cache {t.plan_cache}", bool(t.plan_cache)),
+            ("--train-hybrid-f32-mode split2", hybrid_f32_mode_arg(t) == "split2")) if on]
+        if unrun:
+            raise SystemExit(f"--train-sharding {t.sharding} does not run {', '.join(unrun)} "
+                             "(refused for good: ROADMAP.md)")
         if t.n_devices == 0 and (cfg.device or "cuda").startswith("cpu"):
             raise SystemExit("--train-n-devices 0 means every visible card; on the CPU give "
                              "the number of ranks (--train-n-devices N)")

@@ -23,9 +23,13 @@ Examples:
         --train-n-devices 2                       # 2 ranks over gloo on the CPU
     torchrun --nproc-per-node 4 -m pytextgcn_tpu_torch.experiments.flat \
         --train-sharding allgather                # one rank a card, NCCL
+    python -m pytextgcn_tpu_torch.experiments.flat --dataset synthetic-amazon \
+        --train-sharding hybrid --train-hybrid-k 4096 --train-hybrid-fused on \
+        --train-masked-head true --train-n-devices 4   # sharded hybrid, masked head
 
-``--train-sharding allgather|halo`` partitions the graph over ranks
-(parallel/): under torchrun every rank joins its group; otherwise
+``--train-sharding allgather|halo|hybrid`` partitions the graph over ranks
+(parallel/), with ``--train-masked-head`` under any of them: under
+torchrun every rank joins its group; otherwise
 ``--train-n-devices N > 1`` starts N local ranks, one a card, and 1 runs
 this process as a group of one. Every rank builds the same graph; rank 0
 alone prints, writes the results row and saves.

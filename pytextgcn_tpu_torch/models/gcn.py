@@ -130,6 +130,7 @@ class EGCN(GCN):
         self.in_dim = in_dim
         self.embedding_dim = embedding_dim
         self.embed = Dense(in_dim, embedding_dim, generator)
+        self.tp = None  # the tensor-parallel layout (parallel/tensor.py::apply_tp)
 
     def jax_tree(self) -> Dict[str, Any]:
         return {"embed": {"w": (self.embed.w, False), "b": (self.embed.b, False)},
@@ -139,13 +140,18 @@ class EGCN(GCN):
                 generator: Optional[torch.Generator] = None, adj_out=None) -> torch.Tensor:
         """As :meth:`GCN.forward`. Under ``adj_out`` the dropout on the logits
         draws an ``[M, out_dim]`` mask, so a masked-head run is statistically
-        equal to the full-output one, not equal step for step."""
-        rows = row_block(adj)
+        equal to the full-output one, not equal step for step. Under a
+        tensor-parallel layout (``self.tp``) the embedding is this rank's
+        columns and the first contraction is summed over the ranks."""
+        rows, tp = row_block(adj), self.tp
         h = torch.selu(feats.matmul(self.embed.w) + self.embed.b)
-        h = dropout(h, self.dropout, train, generator, rows)
+        h = dropout(h, self.dropout, train, generator, rows, None if tp is None else tp.cols)
         for i, layer in enumerate(self.layers):
             a = adj_out if (adj_out is not None and i == len(self.layers) - 1) else adj
-            h = spmm(a, h @ layer.w) + layer.b
+            xw = h @ layer.w
+            if i == 0 and tp is not None:
+                xw = tp.all_reduce(xw)
+            h = spmm(a, xw) + layer.b
             if self.activation is not None:
                 h = self.activation(h)
             h = dropout(h, self.dropout, train, generator, rows)

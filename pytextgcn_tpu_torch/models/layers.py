@@ -52,19 +52,28 @@ def linear_init(in_dim: int, out_dim: int,
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator] = None,
-            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+            rows: Optional[Tuple[int, int]] = None,
+            cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout (torch.nn.functional.dropout semantics) with the
     keep mask drawn from ``generator``, which must live on x's device.
 
     ``rows``: ``(N, lo)`` when x holds rows ``[lo, lo + len(x))`` of an
     ``[N, ...]`` activation (a halo rank's, ``ops/spmm.py::row_block``):
     the full ``[N, ...]`` mask is drawn and x takes its rows, rows past N
-    dropped, so every rank seeded alike draws the single-device masks."""
+    dropped, so every rank seeded alike draws the single-device masks.
+    ``cols``: ``(W, lo)`` when the matrix x holds columns ``[lo, lo +
+    x.shape[1])`` of a ``[., W]`` activation (a tensor-parallel rank's,
+    parallel/tensor.py): the full-width mask is drawn and x takes its
+    columns."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
     shape = x.shape if rows is None else (rows[0], *x.shape[1:])
+    if cols is not None:
+        shape = (shape[0], cols[0])
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if cols is not None:
+        mask = mask[:, cols[1]:cols[1] + x.shape[1]]
     if rows is not None:
         mask = mask[rows[1]:rows[1] + x.shape[0]]
         if mask.shape[0] < x.shape[0]:

@@ -6,7 +6,9 @@ Port of ``pytextgcn_tpu/ops/spmm.py``. Three paths, the
 output-row-restricted operator of the masked head
 (:mod:`.restricted`, ``[M, H]`` out), and the operators partitioned over
 ranks (:mod:`..parallel`: ``ShardedAdj``, replicated ``[N, H]`` in and out;
-``HaloAdj``, this rank's ``[rows_per, H]`` rows in and out):
+``HaloAdj``, ``HybridShardedAdj`` and ``RestrictedShardedAdj``, this rank's
+``[rows_per, H]`` rows in and out; ``ReplicatedHead``, the sharded masked
+head on replicated activations):
 
 * hybrid plan: the dense-hot/sparse-cold decomposition (:mod:`.hybrid`);
 * CSR plan: the CSR kernel (:mod:`.spmm_cuda`) through its autograd
@@ -32,17 +34,26 @@ def spmm_segment(adj: NormAdj, x: torch.Tensor) -> torch.Tensor:
 
 def row_block(adj):
     """``(N, first global row)`` of this rank's rows for an operator whose
-    activations are row-sharded (the halo), else None: dropout then draws
-    the rank's rows of the full ``[N, H]`` mask (``models/layers.py``)."""
+    activations are row-sharded (the halo, the sharded hybrid and the
+    sharded masked head), else None: dropout then draws the rank's rows of
+    the full ``[N, H]`` mask (``models/layers.py``)."""
     return getattr(adj, "row_block", None)
 
 
 def spmm(adj, x: torch.Tensor) -> torch.Tensor:
-    from ..parallel.halo import HaloAdj, spmm_halo  # parallel imports ops
-    from ..parallel.sharded import ShardedAdj, spmm_sharded
+    from ..parallel import (HaloAdj, HybridShardedAdj,  # parallel imports ops
+                            RestrictedShardedAdj, ShardedAdj, spmm_halo,
+                            spmm_hybrid_sharded, spmm_restricted_sharded, spmm_sharded)
+    from ..parallel.restricted_sharded import ReplicatedHead, spmm_replicated_head
 
     if isinstance(adj, HaloAdj):
         return spmm_halo(adj, x)
+    if isinstance(adj, HybridShardedAdj):
+        return spmm_hybrid_sharded(adj, x)
+    if isinstance(adj, RestrictedShardedAdj):
+        return spmm_restricted_sharded(adj, x)
+    if isinstance(adj, ReplicatedHead):
+        return spmm_replicated_head(adj, x)
     if isinstance(adj, ShardedAdj):
         return spmm_sharded(adj, x)
     if isinstance(adj, RestrictedAdj):

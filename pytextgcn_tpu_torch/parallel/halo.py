@@ -55,6 +55,7 @@ class HaloAdj:
     self_w:   [rows_per] this rank's self-loop diagonal (0 on pad rows).
     plan_own / plan_rem: the CSR kernel's plans of the own block and of
               each step's remote block (forward and transpose), or None.
+    wire_rows: rows this rank has sent in forward passes.
     """
 
     own_src: torch.Tensor
@@ -74,6 +75,7 @@ class HaloAdj:
     plan_own: Optional[SpmmPlan] = None
     plan_rem: Optional[List[SpmmPlan]] = None
     compute_dtype: str = "float32"
+    wire_rows: int = 0
 
     @property
     def n_shards(self) -> int:
@@ -317,7 +319,9 @@ class HaloSpmmFunction(torch.autograd.Function):
     def forward(ctx, x_own: torch.Tensor, adj: HaloAdj, cd: torch.dtype) -> torch.Tensor:
         ctx.adj, ctx.cd, ctx.x_dtype = adj, cd, x_own.dtype
         xc = x_own.to(cd)
-        ring = _Ring(adj.mesh, halo_send_blocks(adj, xc), reverse=False)
+        blocks = halo_send_blocks(adj, xc)
+        adj.wire_rows += sum(b.shape[0] for b in blocks)
+        ring = _Ring(adj.mesh, blocks, reverse=False)
         out = halo_own_rows(adj, xc, cd)
         recvs = ring.wait()
         return out if not recvs else out + halo_remote_rows(adj, recvs, cd)

@@ -29,7 +29,16 @@ device), and everything else runs identically on every rank. ``halo``
 divides by the global train count, parameter gradients are summed over the
 ranks before the optimizer step, and the metrics sum their counts over the
 ranks; each SpMM runs the kernel on the own block and on each ring step's
-block, forward and transpose.
+block, forward and transpose. ``halo`` with ``hybrid_k``
+(``HybridShardedAdj``): the same layout, each rank's dense hot block on the
+dual kernel (``hybrid_fused``) or two ``torch.matmul``, the cold residual
+on the halo's plans; a K of 0 (or an 'auto' that picks none) falls back to
+the pure halo. ``masked_head`` with a mesh: the sharded restricted head,
+row-sharded and zero at non-train rows, so labels and masks stay whole.
+
+With a ``tp_mesh`` (parallel/tensor.py) EGCN's embedding is cut by columns
+over its ranks, one all_reduce a forward pass; each rank's optimizer runs
+over its own blocks, and checkpoints keep the single-device layout.
 """
 
 from __future__ import annotations
@@ -50,9 +59,6 @@ from ..utils import resolve_device
 from .checkpoint import load_checkpoint, load_meta, save_checkpoint
 from .metrics import accuracy, global_count, macro_f1, masked_cross_entropy
 from .optim import resolve_optimizer
-
-MESH_REFUSED = ("with a mesh: the sharded hybrid and the sharded masked head are not "
-                "ported yet (ROADMAP.md §1 item 4b); a plan cache holds one device's plans")
 
 
 def dropout_seed(seed: int) -> int:
@@ -84,6 +90,7 @@ class Trainer:
         debug_checks: bool = False,
         mesh=None,
         halo: bool = False,
+        tp_mesh=None,
     ):
         """``seed`` seeds the dropout generator (parameters come with the
         model). ``use_pallas``: aggregate through the CSR kernel (else the
@@ -107,23 +114,40 @@ class Trainer:
         ``use_pallas=False`` for that path here.) ``mesh``: a
         ``parallel.Mesh`` (``make_mesh``); the trainer then runs on its
         device (``device`` must be None or the same), with the 'allgather'
-        partition, or the halo exchange with ``halo``."""
+        partition, or the halo exchange with ``halo`` (the sharded hybrid
+        with ``hybrid_k`` besides). ``tp_mesh``: a ``parallel.Mesh`` over
+        which EGCN's embedding is cut by columns (``make_mesh(axis=
+        "model")``)."""
         if masked_head and isinstance(model, JumpingKnowledgeNetwork):
             raise ValueError(JK_NO_MASKED_HEAD)
+        if mesh is not None and tp_mesh is not None:
+            raise ValueError("a tp_mesh together with a graph mesh is not ported yet "
+                             "(ROADMAP.md §1)")
         if mesh is not None:
-            unported = [name for name, on in (("hybrid_k", hybrid_k is not None),
-                                              ("masked_head", masked_head),
-                                              ("plan_cache", plan_cache is not None)) if on]
-            if unported:
-                raise ValueError(f"{', '.join(unported)} {MESH_REFUSED}")
-            if device is not None and torch.device(device) != mesh.device:
-                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
-            device = mesh.device
-        elif halo:
+            if plan_cache is not None:
+                raise ValueError("plan_cache with a mesh: a plan cache holds one device's "
+                                 "operator, which a mesh never builds (ROADMAP.md)")
+            if hybrid_k is not None and not halo:
+                raise ValueError("hybrid_k with the 'allgather' partition: it has no hybrid "
+                                 "form; the sharded hybrid needs halo=True (ROADMAP.md)")
+            if hybrid_f32_mode == "split2":
+                raise ValueError("hybrid_f32_mode='split2' with a mesh: the sharded hybrid's "
+                                 "f32 products are 'highest' (ROADMAP.md)")
+        if mesh is not None or tp_mesh is not None:
+            group_device = (mesh or tp_mesh).device
+            if device is not None and torch.device(device) != group_device:
+                raise ValueError(f"device {device} is not the mesh's {group_device}")
+            device = group_device
+        if halo and mesh is None:
             raise ValueError("halo=True needs a mesh")
         self.mesh = mesh
         self.halo = halo
+        self.tp_mesh = tp_mesh
         self.device = resolve_device(device)
+        if tp_mesh is not None:
+            from ..parallel.tensor import apply_tp
+
+            apply_tp(model, tp_mesh)
         self.model = model.to(self.device)
         self.lr = lr
         self.seed = seed
@@ -159,11 +183,19 @@ class Trainer:
         old = self._adj_key
         if old is None or not (old[0] is key[0] and old[1] is key[1] and old[2:] == key[2:]):
             if self.mesh is not None:
-                from ..parallel import build_halo_adj, build_sharded_adj
+                from ..parallel import (build_halo_adj, build_hybrid_sharded_adj,
+                                        build_sharded_adj)
 
                 if self.halo:
-                    self._adj = build_halo_adj(g, self.mesh, use_pallas=self.use_pallas,
-                                               compute_dtype=self.pallas_dtype)
+                    self._adj = None
+                    if self.hybrid_k is not None:  # None: no hot set, the pure halo
+                        self._adj = build_hybrid_sharded_adj(
+                            g, self.mesh, hot_k=self.hybrid_k, compute_dtype=self.pallas_dtype,
+                            h_hint=getattr(self.model, "n_hidden", 128),
+                            fused=self.hybrid_fused, use_pallas=self.use_pallas)
+                    if self._adj is None:
+                        self._adj = build_halo_adj(g, self.mesh, use_pallas=self.use_pallas,
+                                                   compute_dtype=self.pallas_dtype)
                 else:
                     self._adj = build_sharded_adj(g, self.mesh, use_pallas=self.use_pallas,
                                                   pallas_dtype=self.pallas_dtype)
@@ -204,7 +236,7 @@ class Trainer:
         adopted unless the aggregation settings are equal; :meth:`prepare`'s
         edge-identity check still guards against a different graph."""
         settings = lambda t: (t.device, t.use_pallas, t.pallas_dtype, t.hybrid_k,
-                              t.hybrid_fused, t.hybrid_f32_mode, t.mesh, t.halo)
+                              t.hybrid_fused, t.hybrid_f32_mode, t.mesh, t.halo, t.tp_mesh)
         if other._adj is None or settings(self) != settings(other):
             return
         self._adj, self._adj_key = other._adj, other._adj_key
@@ -216,17 +248,28 @@ class Trainer:
         edge-array and train-mask identity (members of an ensemble share
         edges but differ in masks). Built as the JAX trainer builds it: on
         the CSR kernel when the full operator uses a kernel, with the
-        restricted cost model's K when the full operator is hybrid."""
+        restricted cost model's K when the full operator is hybrid. With a
+        mesh, the sharded restricted head (parallel/restricted_sharded.py),
+        on replicated activations under 'allgather'."""
         key = (g.edge_src, g.edge_w, g.train_mask)
         old = self._adj_out_key
         if old is None or not all(a is b for a, b in zip(old, key)):
             hybrid = self.hybrid_k is not None
-            self._adj_out = build_restricted_adj(
-                g, np.flatnonzero(np.asarray(g.train_mask)),
-                use_pallas=self.use_pallas or hybrid, hot_k="auto" if hybrid else None,
-                compute_dtype=self.pallas_dtype, h_hint=self.model.out_dim,
-                device=self.device,
-            )
+            rows = np.flatnonzero(np.asarray(g.train_mask))
+            if self.mesh is not None:
+                from ..parallel import ReplicatedHead, build_restricted_sharded_adj
+
+                self._adj_out = build_restricted_sharded_adj(
+                    g, rows, self.mesh, hot_k="auto" if hybrid else None,
+                    compute_dtype=self.pallas_dtype, use_pallas=self.use_pallas,
+                    h_hint=self.model.out_dim)
+                if not self.halo:
+                    self._adj_out = ReplicatedHead(self._adj_out)
+            else:
+                self._adj_out = build_restricted_adj(
+                    g, rows, use_pallas=self.use_pallas or hybrid,
+                    hot_k="auto" if hybrid else None, compute_dtype=self.pallas_dtype,
+                    h_hint=self.model.out_dim, device=self.device)
             self._adj_out_key = key
         return self._adj_out
 
@@ -335,11 +378,13 @@ class Trainer:
             val_denom = global_count(val_mask, self._group())
         adj_out, y_step, mask_step = None, y, train_mask
         if self.masked_head:
-            # logits at the train rows only: labels sliced to them, every
-            # row counted, so the loss sees the full step's terms
             adj_out = self._prepare_restricted(g)
-            y_step = y.index_select(0, adj_out.rows)
-            mask_step = torch.ones(adj_out.m, dtype=torch.bool, device=self.device)
+            if self.mesh is None:
+                # logits at the train rows only: labels sliced to them, every
+                # row counted, so the loss sees the full step's terms (over
+                # ranks the head keeps every row, zero off the train rows)
+                y_step = y.index_select(0, adj_out.rows)
+                mask_step = torch.ones(adj_out.m, dtype=torch.bool, device=self.device)
 
         history: List[Dict[str, float]] = []
         f1_hist: List[float] = []  # val F1 at eval points (for 'val_f1' ES)
@@ -424,7 +469,8 @@ class Trainer:
         refused = [name for name, on in (("hybrid_k", self.hybrid_k is not None),
                                          ("masked_head", self.masked_head),
                                          ("plan_cache", self.plan_cache is not None),
-                                         ("a mesh", self.mesh is not None)) if on]
+                                         ("a mesh", self.mesh is not None),
+                                         ("a tp_mesh", self.tp_mesh is not None)) if on]
         if refused:
             raise ValueError(f"fit_minibatch does not run {', '.join(refused)}: "
                              "they act on the full graph's operator")
@@ -475,29 +521,42 @@ class Trainer:
         optimizer and dropout-generator state and the epoch counter:
         everything :meth:`fit` needs to resume bit for bit. With a mesh,
         rank 0 writes (every rank holds the same state) and the ranks wait
-        for it, so each can :meth:`restore` right after."""
-        if self.mesh is not None and self.mesh.rank != 0:
-            torch.distributed.barrier(group=self.mesh.group)
+        for it, so each can :meth:`restore` right after. With a ``tp_mesh``
+        every rank calls it: the cut parameters and their moments are
+        gathered to the single-device layout, which rank 0 writes."""
+        from ..parallel.tensor import gather_optimizer_state, gather_params
+
+        mesh = self.mesh or self.tp_mesh
+        params = gather_params(self.model, export_params(self.model))
+        opt_state = gather_optimizer_state(self.model, self.optimizer.state_dict())
+        # a mesh of no group is one process playing a rank: nothing to wait for
+        sync = mesh is not None and mesh.group is not None
+        if mesh is not None and mesh.rank != 0:
+            if sync:
+                torch.distributed.barrier(group=mesh.group)
             return
         save_checkpoint(
-            path, export_params(self.model),
-            torch_state={"optimizer": self.optimizer.state_dict(),
-                         "generator": self.generator.get_state()},
+            path, params,
+            torch_state={"optimizer": opt_state, "generator": self.generator.get_state()},
             meta={"epoch": int(epoch), "seed": self.seed,
                   "model": type(self.model).__name__},
         )
-        if self.mesh is not None:
-            torch.distributed.barrier(group=self.mesh.group)
+        if sync:
+            torch.distributed.barrier(group=mesh.group)
 
     def restore(self, path: str) -> int:
         """Load a checkpoint written by :meth:`save`, or the parameters of
         one written by the JAX package's ``save_checkpoint`` (which carries
         no torch state: the optimizer and generator then stay as they are).
-        Returns the epoch to pass to ``fit(..., start_epoch=...)``."""
+        Under a ``tp_mesh`` the single-device layout is cut to this rank's
+        blocks again. Returns the epoch to pass to ``fit(...,
+        start_epoch=...)``."""
+        from ..parallel.tensor import apply_tp_state, shard_params
+
         params, state = load_checkpoint(path, export_params(self.model))
-        load_jax_params(self.model, params)
+        load_jax_params(self.model, shard_params(self.model, params))
         if state is not None:
-            self.optimizer.load_state_dict(state["optimizer"])
+            self.optimizer.load_state_dict(apply_tp_state(self.model, state["optimizer"]))
             self.generator.set_state(state["generator"])
         self._restored = True
         return int(load_meta(path).get("epoch", 0))

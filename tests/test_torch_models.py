@@ -298,9 +298,10 @@ def test_share_adjacency_only_with_equal_aggregation():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--train-sharding", "hybrid"], ["--train-ep", "true", "--train-n-devices", "2"],
+    ["--train-sharding", "hybrid", "--train-hybrid-f32-mode", "split2"],
+    ["--train-ep", "true", "--train-n-devices", "2"],
     ["--train-batch-size", "1", "--train-hybrid-k", "128"],
-    ["--train-sharding", "halo", "--train-n-devices", "2", "--train-masked-head", "true"],
+    ["--train-sharding", "halo", "--train-n-devices", "2", "--train-plan-cache", "plans"],
     ["--train-sharding", "allgather", "--train-n-devices", "2", "--train-hybrid-k", "128"],
     ["--graph-backend", "sharded"],
     ["--train-ep", "true", "--train-n-devices", "4"],
@@ -318,7 +319,10 @@ def test_check_ported_still_refuses(flag):
                                   ["--train-optimizer", "optax_amsgrad"],
                                   ["--dataset", "amazon"], ["--dataset", "dbpedia"],
                                   ["--dataset", "csv"], ["--train-batch-size", "64"],
-                                  ["--graph-backend", "device"]])
+                                  ["--graph-backend", "device"],
+                                  ["--train-sharding", "hybrid", "--train-n-devices", "2"],
+                                  ["--train-sharding", "halo", "--train-n-devices", "2",
+                                   "--train-masked-head", "true"]])
 def test_check_ported_accepts_egcn_jk_and_save_model(flag):
     check_ported(parse_config(flag))
 

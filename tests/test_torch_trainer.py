@@ -77,8 +77,9 @@ def test_flat_experiment_writes_results_row(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--graph-backend", "sharded"], ["--train-sharding", "hybrid"],
-    ["--train-sharding", "halo", "--train-masked-head", "true", "--train-n-devices", "2"],
+    ["--graph-backend", "sharded"],
+    ["--train-sharding", "hybrid", "--train-n-devices", "2", "--train-plan-cache", "plans"],
+    ["--train-sharding", "halo", "--train-hybrid-k", "128", "--train-n-devices", "2"],
     ["--train-ep", "true", "--train-n-devices", "2"],
     ["--train-sharding", "allgather", "--train-n-devices", "2", "--train-batch-size", "8"],
     ["--train-batch-size", "8", "--train-masked-head", "true"],
