@@ -3,12 +3,12 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py                      # the full check, ~8 min
+    python3 chip_smoke.py                      # the full check, ~12 min
     python3 chip_smoke.py --profile OUT_DIR    # also torch.profiler tables of the
                                                # CSR and hybrid train steps
     python3 chip_smoke.py --nccl-ranks 4       # on 4 cards: only phase 15's two
-                                               # partitions and phase 16's modes over
-                                               # NCCL, a rank a card
+                                               # partitions, phase 16's modes and
+                                               # phase 17 over NCCL, a rank a card
 
 Phases, each fatal (exit code 1, no result line) when it fails:
 
@@ -183,6 +183,29 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    their times, bounds and library calls, and the sharded hybrid's comm
    rows beside phase 15's halo and all-gather at D = 2, 4 and 8.
 
+17. the last multi-device paths on phase 2's corpus and graph: (a) the
+   corpus counted by ``word_word_edges_sharded`` over every visible card,
+   twice, and by the device backend on card 0, each equal bit for bit to
+   the native kernel, with seconds and peak memory a card; (b) the
+   data-parallel MLP step (``train_mlp(mesh=)``) at the Amazon protocol's
+   size (train ``[36,000, V]``, MLP [256, 128]), dropout 0,
+   ``LAST_EPOCHS`` epochs; (c) the per-label ensemble of 6 GCN members
+   (hidden 100) across the ranks (``train_per_label(mesh=)``), dropout 0;
+   (d) EGCN (embedding 2000) cut by columns beside the 'allgather', 'halo'
+   and 'hybrid' (K = 4096, dual kernel f32) partitions (``TP_GRAPH_MODES``).
+   (b)-(d) at world 1 over NCCL and on 2 ranks sharing the card over gloo:
+   the CSR kernel's launches a rank by plan shape exact (the MLP: its
+   rank's ``[b, V]`` plan, the transpose, the validation plan, once an
+   epoch; the ensemble: one launch a width of its block of members and
+   application), the histories, losses and rank 0's parameters within
+   2e-4 / 2e-5 of the single device (the ensemble's also of its sequential
+   members), the parameters equal on every rank, (d) as phase 16 holds its
+   modes against phase 16's single-device EGCN run; the step a rank. Then
+   the kernel on a DP rank's plans (2 ranks, H = 256) and at an EP rank's
+   width (3 members x 100) against its plain version, timed, and (e)
+   ``benchmark_scaling --audit-comm`` at one rank, its rows on the wire
+   equal to the comm model's.
+
 It prints a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -232,7 +255,7 @@ _T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    if msg.startswith("[") and "/16]" in msg[:7]:  # a phase's header: when it began
+    if msg.startswith("[") and "/17]" in msg[:7]:  # a phase's header: when it began
         msg = f"{msg.split(']', 1)[0]} at {time.perf_counter() - _T0:.1f}s]{msg.split(']', 1)[1]}"
     print(msg, flush=True)
 
@@ -454,7 +477,7 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     n, e = g.n_nodes, g.n_edges
-    log(f"[10/16] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
+    log(f"[10/17] models and hierarchies on the CSR kernel ({MODEL_EPOCHS} epochs a "
         "level or member):")
     _, (cat1, cat2), _, _ = common.load_corpus(cfg, levels=["Cat1", "Cat2"])
     if not np.array_equal(cat2, np.asarray(g.y)[g.n_vocab:]):
@@ -675,7 +698,7 @@ def operator_options(args, card, g, n_classes: int, hidden: int, adj, counters, 
     out, errs, rows_json = {}, [], []
     y = torch.as_tensor(g.y, dtype=torch.int64, device=dev)
     train_mask = torch.as_tensor(g.train_mask, device=dev)
-    log(f"[11/16] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
+    log(f"[11/17] the trainer's operator options on the CSR kernel ({epochs} epochs a path):")
 
     # ---- the masked head through the flat experiment
     mcfg = parse_config(base + ["--train-masked-head", "true"])
@@ -1167,7 +1190,7 @@ def mlp_and_last_options(args, card, g, n_classes: int, hidden: int, counters, g
     epochs = MODEL_EPOCHS
     n, e = g.n_nodes, g.n_edges
     out, errs = {}, []
-    log(f"[12/16] the MLP baselines, the CSV loaders and the last trainer options "
+    log(f"[12/17] the MLP baselines, the CSV loaders and the last trainer options "
         f"({epochs} epochs a path):")
 
     # ---- the MLP experiment at the synthetic-amazon scale
@@ -1478,6 +1501,26 @@ def mlp_and_last_options(args, card, g, n_classes: int, hidden: int, counters, g
     return out, errs, plan_rows
 
 
+def corpus_tokens(cfg, g):
+    """Phase 2's corpus as its graph build encodes it for counting: the
+    token rows, the vocabulary size (checked against ``g``'s) and the
+    corpus ``(docs, test_idx, val_idx)``."""
+    from pytextgcn_tpu_torch.build.stopwords import get_stopwords
+    from pytextgcn_tpu_torch.build.vectorizer import CountVectorizer
+    from pytextgcn_tpu_torch.experiments import common
+
+    gc = cfg.graph
+    docs, _, test_idx, val_idx = common.load_corpus(cfg)
+    cv = CountVectorizer(min_df=gc.min_df, max_df=gc.max_df,
+                         stop_words=get_stopwords("nltk") if gc.rm_stopwords else None)
+    cv.fit_transform(docs)
+    tokens = cv.encode_documents(docs, gc.max_length)
+    n_vocab = len(cv.vocabulary_)
+    if n_vocab != g.n_vocab:
+        fail(f"recomputed vocabulary {n_vocab} != the graph's {g.n_vocab}")
+    return tokens, n_vocab, (docs, test_idx, val_idx)
+
+
 def counting_and_minibatching(args, card, cfg, g, n_classes: int, adj, counters, gen, dev):
     """Phase 13: device counting on the 50k-doc corpus against the native
     kernel at two chunk budgets, ``Text2Graph(backend='auto')`` above the
@@ -1491,8 +1534,6 @@ def counting_and_minibatching(args, card, cfg, g, n_classes: int, adj, counters,
     import torch
 
     from pytextgcn_tpu_torch.build import windows
-    from pytextgcn_tpu_torch.build.stopwords import get_stopwords
-    from pytextgcn_tpu_torch.build.vectorizer import CountVectorizer
     from pytextgcn_tpu_torch.config import check_ported, make_model, parse_config
     from pytextgcn_tpu_torch.data.batching import NeighborhoodBatcher
     from pytextgcn_tpu_torch.experiments import common, flat
@@ -1502,18 +1543,11 @@ def counting_and_minibatching(args, card, cfg, g, n_classes: int, adj, counters,
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     out, errs = {}, []
-    log("[13/16] device counting and mini-batching:")
+    log("[13/17] device counting and mini-batching:")
 
     # ---- device counting against native on the corpus of phase 2
     gc = cfg.graph
-    docs, _, test_idx, val_idx = common.load_corpus(cfg)
-    cv = CountVectorizer(min_df=gc.min_df, max_df=gc.max_df,
-                         stop_words=get_stopwords("nltk") if gc.rm_stopwords else None)
-    cv.fit_transform(docs)
-    tokens = cv.encode_documents(docs, gc.max_length)
-    n_vocab = len(cv.vocabulary_)
-    if n_vocab != g.n_vocab:
-        fail(f"recomputed vocabulary {n_vocab} != the graph's {g.n_vocab}")
+    tokens, n_vocab, (docs, test_idx, val_idx) = corpus_tokens(cfg, g)
     t0 = time.perf_counter()
     native = windows.word_word_edges(tokens, n_vocab, gc.window_size, backend="native",
                                      n_jobs=8)
@@ -2150,7 +2184,7 @@ def partitioned_training(card, cfg, g, n_classes: int, widths, gen, dev):
     kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
                           spmm_cuda.spmm_csr_abs)
     epochs, n = SHARDED_EPOCHS, g.n_nodes
-    log(f"[15/16] graph-partitioned training on phase 2's graph (N={n}, E={g.n_edges}), "
+    log(f"[15/17] graph-partitioned training on phase 2's graph (N={n}, E={g.n_edges}), "
         f"{epochs} epochs a run, phase 9's initial parameters:")
     out, errs = {}, []
 
@@ -2302,7 +2336,7 @@ PHASE16_MODES = {
 }
 
 
-def phase16_launches(name: str, world: int, dual_on: bool) -> dict:
+def phase16_launches(name: str, world: int, dual_on: bool, modes=None) -> dict:
     """Kernel launches of ``fit_counted`` for a 2-layer model in a phase-16
     mode on one rank: every SpMM application (2 forward and 2 backward a
     train step, 2 forward in each of the E + 1 forward-only passes) runs the
@@ -2310,12 +2344,12 @@ def phase16_launches(name: str, world: int, dual_on: bool) -> dict:
     under TP the single-device plan), the masked head's on its head; with
     the dual kernel on, each application of the full hybrid operator
     launches it once (the masked head trains on the full operator in its
-    first layer only)."""
-    kind, opts, _ = PHASE16_MODES[name]
+    first layer only). ``modes``: ``PHASE16_MODES`` by default."""
+    kind, opts, _ = (modes or PHASE16_MODES)[name]
     e = HYBRID_EPOCHS
     masked = opts.get("masked_head", False)
     full_apps = (2 if masked else 4) * e + 2 * (e + 1)
-    plans = 1 if opts.get("tp") else world
+    plans = world if opts.get("halo") else 1
     return {"csr": plans * (4 * e + 2 * (e + 1)), "dual": full_apps if dual_on else 0}
 
 
@@ -2334,7 +2368,19 @@ def full_digest(model) -> str:
     return h.hexdigest()
 
 
-def run_mode16(name: str, g, model_cfg: dict, n_classes: int, kw: dict) -> dict:
+def mode_kwargs(opts: dict, mesh, tp_mesh) -> dict:
+    """A phase-16 or phase-17 mode's Trainer options: its meshes (``tp``:
+    the tp_mesh, beside the graph mesh with ``graph`` or ``halo``) and the
+    rest of ``opts``."""
+    kw = {k: v for k, v in opts.items() if k not in ("tp", "graph")}
+    if opts.get("tp"):
+        kw["tp_mesh"] = tp_mesh
+    if not opts.get("tp") or opts.get("graph") or opts.get("halo"):
+        kw["mesh"] = mesh
+    return kw
+
+
+def run_mode16(name: str, g, model_cfg: dict, n_classes: int, kw: dict, modes=None) -> dict:
     """One phase-16 run (``kw``: the trainer's device or meshes, and its
     options): the operator's build, ``fit_counted`` with the dual kernel's
     counts set to 0 just before too, the comm rows its collectives moved a
@@ -2345,7 +2391,7 @@ def run_mode16(name: str, g, model_cfg: dict, n_classes: int, kw: dict) -> dict:
     from pytextgcn_tpu_torch.ops import fused_dual as fd
     from pytextgcn_tpu_torch.train import Trainer
 
-    kind = PHASE16_MODES[name][0]
+    kind = (modes or PHASE16_MODES)[name][0]
     mcfg = ModelConfig(**{**model_cfg, "model": kind})
     model = make_model(mcfg, g.in_dim, n_classes, generator=torch.Generator().manual_seed(3))
     trainer = Trainer(model, lr=0.05, **kw)
@@ -2400,9 +2446,7 @@ def hybrid_rank(rank: int, world: int, address: str, backend: str, graph_path: s
     g = TextGraph.load(graph_path)
     out = {"backend": mesh.backend, "device": str(mesh.device), "staged": mesh.staged}
     for name, (_, opts, _) in PHASE16_MODES.items():
-        kw = dict(tp_mesh=tp_mesh) if opts.get("tp") else dict(
-            mesh=mesh, **{k: v for k, v in opts.items()})
-        out[name] = run_mode16(name, g, model_cfg, n_classes, kw)
+        out[name] = run_mode16(name, g, model_cfg, n_classes, mode_kwargs(opts, mesh, tp_mesh))
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -2424,27 +2468,28 @@ def phase16_references(g, model_cfg: dict, n_classes: int, dev) -> dict:
     return refs
 
 
-def check_mode16(tag: str, name: str, per_rank: list, ref: dict) -> dict:
-    """One phase-16 mode on every rank: the operator asked for, launches
-    exact, comm rows moved as priced (D >= 2), the same parameters on every
-    rank, the losses within tolerance of the single-device run. Returns
-    the summary."""
+def check_mode16(tag: str, name: str, per_rank: list, ref: dict, modes=None) -> dict:
+    """One phase-16 mode (of ``modes``, ``PHASE16_MODES`` by default) on
+    every rank: the operator asked for, launches exact, comm rows moved as
+    priced (D >= 2), the same parameters on every rank, the losses within
+    tolerance of the single-device run. Returns the summary."""
     import numpy as np
 
     world = len(per_rank)
-    kind, opts, _ = PHASE16_MODES[name]
+    kind, opts, _ = (modes or PHASE16_MODES)[name]
     first = per_rank[0]
     hybrid_k = opts.get("hybrid_k")
     if hybrid_k == "auto":
         want_op = "HybridShardedAdj" if first["k"] else "HaloAdj"
     else:
-        want_op = ("HybridShardedAdj" if hybrid_k else "HaloAdj") if opts.get("halo") else "NormAdj"
+        want_op = (("HybridShardedAdj" if hybrid_k else "HaloAdj") if opts.get("halo")
+                   else "ShardedAdj" if opts.get("graph") else "NormAdj")
     if any(r["operator"] != want_op for r in per_rank) or (
             isinstance(hybrid_k, int) and first["k"] != hybrid_k):
         fail(f"{tag} {name}: operators {[(r['operator'], r['k']) for r in per_rank]}, "
              f"expected {want_op} K={hybrid_k}")
     dual_on = want_op == "HybridShardedAdj" and bool(opts.get("hybrid_fused"))
-    want = phase16_launches(name, world, dual_on)
+    want = phase16_launches(name, world, dual_on, modes)
     variant = "dual_bf16" if opts.get("pallas_dtype") == "bfloat16" else "dual_f32"
     got = [{"csr": r["launches"]["csr"], "dual": sum(v for k, v in r["launches"].items()
                                                      if k.startswith("dual"))}
@@ -2514,7 +2559,7 @@ def sharded_hybrid_training(card, cfg, g, n_classes: int, widths, gen, dev, halo
     dual = fd.fused_dual_kernel
     n = g.n_nodes
     model_cfg = dataclasses.asdict(cfg.model)
-    log(f"[16/16] the sharded hybrid (K={HOT_K}), the sharded masked head and TP EGCN "
+    log(f"[16/17] the sharded hybrid (K={HOT_K}), the sharded masked head and TP EGCN "
         f"(embedding {cfg.model.embedding_dim}) on phase 2's graph (N={n}, E={g.n_edges}), "
         f"{HYBRID_EPOCHS} epochs a run, phase 9's initial parameters:")
     out = {"modes": list(PHASE16_MODES)}
@@ -2525,8 +2570,7 @@ def sharded_hybrid_training(card, cfg, g, n_classes: int, widths, gen, dev, halo
     mesh, tp_mesh = make_mesh(1, device=dev), make_mesh(1, axis="model", device=dev)
     world1 = {}
     for name, (_, opts, _) in PHASE16_MODES.items():
-        kw = dict(tp_mesh=tp_mesh) if opts.get("tp") else dict(mesh=mesh, **opts)
-        r = run_mode16(name, g, model_cfg, n_classes, kw)
+        r = run_mode16(name, g, model_cfg, n_classes, mode_kwargs(opts, mesh, tp_mesh))
         world1[name] = check_mode16(f"(a) world 1 over {mesh.backend}", name, [r], refs[name])
         if name == "hybrid_auto":
             log(f"  (a) 'auto' picked K={r['k']} ({r['operator']}) at H={cfg.model.n_hidden}")
@@ -2541,8 +2585,8 @@ def sharded_hybrid_training(card, cfg, g, n_classes: int, widths, gen, dev, halo
     out["shared_card"]["seconds"] = secs
     out["shared_card"]["label"] = ("ranks sharing one card over gloo (the exchange through "
                                    "host memory): no prediction of NCCL across cards")
-    out["single_device"] = {name: {"losses": r["losses"], "step_ms": r["step_ms"]}
-                            for name, r in refs.items()}
+    out["single_device"] = {name: {"losses": r["losses"], "step_ms": r["step_ms"],
+                                   "metrics": r["metrics"]} for name, r in refs.items()}
 
     # ---- each rank's kernels at its real shapes, 2 ranks
     errs = {"f32": [], "bf16": [], "csr": []}
@@ -2623,6 +2667,469 @@ def sharded_hybrid_training(card, cfg, g, n_classes: int, widths, gen, dev, halo
     return out, errs, rows
 
 
+# ------------------------------------------------------------ phase 17
+
+LAST_EPOCHS = 5  # epochs of the data-parallel MLP and of the ensemble, phase 17
+# a rank's MLP and ensemble against the single device (rtol, atol): the
+# band of tests/test_mlp_dp.py and tests/test_perlabel_ep.py
+LAST_TOL = (2e-4, 2e-5)
+# EGCN cut by columns beside a graph mesh over the same ranks, phase 17 (d),
+# as PHASE16_MODES (``graph``: beside the 'allgather' partition)
+TP_GRAPH_MODES = {
+    "tp_allgather": ("egcn", dict(tp=True, graph=True), {}),
+    "tp_halo": ("egcn", dict(tp=True, halo=True), {}),
+    "tp_hybrid": ("egcn", dict(tp=True, halo=True, hybrid_k=HOT_K, hybrid_fused=True), {}),
+}
+
+
+def leaves(tree, path: str = "params") -> dict:
+    """A parameter tree's numpy leaves, keyed by their paths."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree) for k, v in leaves(tree[key], f"{path}/{key}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, t in enumerate(tree) for k, v in leaves(t, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+def ep_block_step(trainers, g, cat1, cat2, mesh=None):
+    """The batched ensemble's train step on ``mesh``'s block of the members
+    (every member without a mesh), from their current parameters, as
+    ``train_per_label`` steps it: for its time."""
+    import numpy as np
+    import torch
+
+    from pytextgcn_tpu_torch.hierarchy import perlabel as hpl
+    from pytextgcn_tpu_torch.train.optim import resolve_optimizer
+
+    world, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+    members = hpl._member_label_arrays(g, cat2, cat1, len(trainers))
+    c_list = [len(classes) for classes, _, _ in members]
+    m_local = -(-len(trainers) // world)
+    mine = [i for i in range(rank * m_local, (rank + 1) * m_local) if i < len(trainers)]
+    pick = mine + [0] * (m_local - len(mine))  # dummies repeat member 0 on no rows
+    dev = trainers[0].device
+    c_local = [c_list[i] for i in pick]
+    params = hpl._stack_members([trainers[i].model for i in pick], c_local, dev,
+                                c_max=max(c_list))
+    opt = resolve_optimizer("adam", params, 0.05)
+    y = torch.as_tensor(np.stack([members[i][1] for i in pick], 1), dtype=torch.int64,
+                        device=dev)
+    rows = [np.asarray(g.train_mask) & members[i][2] if j < len(mine) else
+            np.zeros(g.n_nodes, bool) for j, i in enumerate(pick)]
+    mask = torch.as_tensor(np.stack(rows, 1), device=dev).float()
+    gens = [torch.Generator(device=dev).manual_seed(44) for _ in pick]
+    adj, feats = trainers[0]._adj, trainers[0]._feats
+    model = trainers[0].model
+    return lambda: hpl.ep_train_step(params, opt, model, adj, feats, y, mask, gens, c_local)
+
+
+def last_paths_work(mesh_of, inputs_dir: str, out_dir: str, rank: int) -> dict:
+    """Phase 17 (b)-(d) on one rank (``mesh_of(axis)``: its mesh of that
+    axis), each with the CSR kernel's (and the dual kernel's) counts set to
+    0 just before it: the data-parallel MLP step, the ensemble across the
+    ranks, EGCN cut by columns beside each graph partition. Rank 0 writes
+    the MLP's and the members' parameters to ``out_dir``; every rank
+    returns digests, histories, launches by plan shape and step times."""
+    import numpy as np
+    import torch
+    from scipy import sparse as sp
+
+    from pytextgcn_tpu_torch.baselines.mlp_pipeline import (dp_train_step, row_block,
+                                                            train_mlp)
+    from pytextgcn_tpu_torch.config import ModelConfig, make_model
+    from pytextgcn_tpu_torch.core.graph import TextGraph
+    from pytextgcn_tpu_torch.hierarchy import train_per_label
+    from pytextgcn_tpu_torch.models import export_params
+    from pytextgcn_tpu_torch.ops import spmm_cuda
+    from pytextgcn_tpu_torch.train.optim import resolve_optimizer
+
+    kernel = spmm_cuda.spmm_csr_kernel
+    with open(os.path.join(inputs_dir, "meta.json")) as f:
+        meta = json.load(f)
+    g = TextGraph.load(os.path.join(inputs_dir, "graph.npz"))
+    x_tr = sp.load_npz(os.path.join(inputs_dir, "x_train.npz"))
+    x_va = sp.load_npz(os.path.join(inputs_dir, "x_val.npz"))
+    with np.load(os.path.join(inputs_dir, "labels.npz")) as z:
+        y_tr, y_va, cat1, cat2 = (z[k] for k in ("y_train", "y_val", "cat1", "cat2"))
+    out = {}
+
+    # ---- (b) the data-parallel MLP step
+    data_mesh = mesh_of("data")
+    out.update(backend=data_mesh.backend, device=str(data_mesh.device), staged=data_mesh.staged)
+    kernel.launches, kernel.shapes = 0, {}
+    t0 = time.perf_counter()
+    model, hist = train_mlp(x_tr, y_tr, x_va, y_va, meta["mlp_classes"], mesh=data_mesh,
+                            **meta["mlp_kw"])
+    torch.cuda.synchronize()
+    dp = {"seconds": time.perf_counter() - t0, "history": hist, "params": params_digest(model),
+          "shapes": {str(k): v for k, v in kernel.shapes.items()}}
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "dp_params.npz"), **leaves(export_params(model)))
+    blk = row_block(data_mesh, x_tr, y_tr)
+    opt = resolve_optimizer("adam", model.parameters(), meta["mlp_kw"]["lr"])
+    gen = torch.Generator(device=data_mesh.device).manual_seed(0)
+    dp["step_ms"] = host_step_ms(lambda: dp_train_step(model, opt, data_mesh, blk, gen), reps=10)
+    out["dp"] = dp
+    del model, opt, blk
+
+    # ---- (c) the ensemble across the ranks
+    ens = mesh_of("ensemble")
+    zmodel = ModelConfig(**meta["zmodel_cfg"])
+    factory = (lambda i, o, gen_=torch.Generator().manual_seed(44):
+               make_model(zmodel, i, o, generator=gen_))
+    kernel.launches, kernel.shapes = 0, {}
+    t0 = time.perf_counter()
+    res = train_per_label(g, cat2, cat1, factory, epochs=LAST_EPOCHS, seed=44, lr=meta["lr"],
+                          mesh=ens)
+    torch.cuda.synchronize()
+    ep = {"seconds": time.perf_counter() - t0,
+          "losses": [[r["loss"] for r in h] for h in res["histories"]],
+          "params": [params_digest(t.model) for t in res["trainers"]],
+          "shapes": {str(k): v for k, v in kernel.shapes.items()},
+          "sizes": [len(res["mapping"][c]) for c in range(len(res["trainers"]))]}
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "ep_params.npz"), **{
+            f"m{i}/{k}": v for i, t in enumerate(res["trainers"])
+            for k, v in leaves(export_params(t.model)).items()})
+    ep["step_ms"] = host_step_ms(ep_block_step(res["trainers"], g, cat1, cat2, ens), reps=10)
+    out["ep"] = ep
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- (d) EGCN cut by columns beside each graph partition
+    mesh, tp_mesh = mesh_of("graph"), mesh_of("model")
+    for name, (_, opts, _) in TP_GRAPH_MODES.items():
+        out[name] = run_mode16(name, g, meta["model_cfg"], meta["n_classes"],
+                               mode_kwargs(opts, mesh, tp_mesh), modes=TP_GRAPH_MODES)
+    return out
+
+
+def last_paths_rank(rank: int, world: int, address: str, backend: str, inputs_dir: str,
+                    out_dir: str) -> None:
+    """One rank of phase 17 (``torch.multiprocessing``): over gloo the ranks
+    share ``cuda:0``, over NCCL each has its card; its results to
+    ``out_dir/rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from pytextgcn_tpu_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = "cuda:0" if backend == "gloo" else "cuda"
+    init_distributed(address, world, rank, backend=backend, device=device, timeout_s=600)
+    out = last_paths_work(lambda axis: make_mesh(world, axis=axis, device=device), inputs_dir,
+                          out_dir, rank)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def run_last_paths(world: int, backend: str, inputs_dir: str, dev):
+    """Phase 17 (b)-(d) on ``world`` ranks: in this process as a group of
+    one over NCCL (``backend`` 'nccl', ``world`` 1), else spawned. Returns
+    each rank's results, rank 0's MLP and member parameters, the seconds."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pytextgcn_tpu_torch.parallel import init_distributed, make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        if world == 1 and backend == "nccl":
+            init_distributed(backend="nccl", device=dev)
+            ranks = [last_paths_work(lambda axis: make_mesh(1, axis=axis, device=dev),
+                                     inputs_dir, tmp, 0)]
+            dist.destroy_process_group()
+        else:
+            try:
+                torch.multiprocessing.spawn(last_paths_rank, nprocs=world, join=True,
+                                            args=(world, f"127.0.0.1:{free_port()}", backend,
+                                                  inputs_dir, tmp))
+            except Exception as exc:  # a rank raised: its traceback is in the message
+                fail(f"phase 17, {world} ranks over {backend}: {exc}")
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        secs = time.perf_counter() - t0
+        with np.load(os.path.join(tmp, "dp_params.npz")) as z:
+            dp0 = dict(z)
+        with np.load(os.path.join(tmp, "ep_params.npz")) as z:
+            ep0 = dict(z)
+    return ranks, dp0, ep0, secs
+
+
+def check_last_paths(tag: str, ranks, dp0: dict, ep0: dict, ref: dict, tp_ref: dict) -> dict:
+    """Phase 17 (b)-(d) on every rank against the single device (``ref``:
+    its MLP, batched and sequential ensembles; ``tp_ref``: its EGCN run):
+    the CSR kernel's launches by plan shape exact, the histories, losses
+    and rank 0's parameters within ``LAST_TOL``, the parameters equal on
+    every rank; each TP mode as phase 16 holds its modes. Returns the
+    summary."""
+    import numpy as np
+
+    world = len(ranks)
+    rtol, atol = LAST_TOL
+    out = {"ranks": world, "backend": ranks[0]["backend"]}
+
+    def near(label: str, got, want) -> float:
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        err = float(np.max(np.abs(got - want))) if got.size else 0.0
+        if got.shape != want.shape or not np.isfinite(got).all() or not bool(
+                (np.abs(got - want) <= atol + rtol * np.abs(want)).all()):
+            fail(f"{tag} {label}: max abs diff {err:.3e} (rtol {rtol:g}, atol {atol:g}), "
+                 f"shapes {got.shape} / {want.shape}")
+        return err
+
+    # (b) the MLP: a rank's train plan [b, V], its transpose, the validation plan
+    b_tr, v = ref["mlp_shape"]
+    b = -(-b_tr // world)
+    h1 = ref["mlp_hidden"]
+    want = {str((b, v, h1)): LAST_EPOCHS, str((v, b, h1)): LAST_EPOCHS,
+            str((ref["mlp_val_rows"], v, h1)): LAST_EPOCHS}
+    shapes = [r["dp"]["shapes"] for r in ranks]
+    errs = [near(f"DP MLP rank {i} history", r["dp"]["history"], ref["mlp_history"])
+            for i, r in enumerate(ranks)]
+    errs += [near(f"DP MLP rank 0 {k}", dp0[k], w) for k, w in ref["mlp_params"].items()]
+    if shapes != [want] * world:
+        fail(f"{tag} DP MLP: launches by plan shape {shapes}, expected {want} a rank")
+    if len({r["dp"]["params"] for r in ranks}) != 1:
+        fail(f"{tag} DP MLP: the ranks' parameters differ")
+    out["dp"] = {"launches": shapes, "max_abs_err": max(errs),
+                 "step_ms": [r["dp"]["step_ms"] for r in ranks],
+                 "seconds": [r["dp"]["seconds"] for r in ranks]}
+    log(f"  {tag} DP MLP ({LAST_EPOCHS} epochs, dropout 0): launches per rank {shapes} "
+        f"(expected {want}); history and rank 0's parameters within {max(errs):.3e} of the "
+        f"single device; step ms per rank {[round(r['dp']['step_ms'], 3) for r in ranks]} "
+        f"(single device {ref['mlp_step_ms']:.3f})")
+
+    # (c) the ensemble: one launch a width and application, each way
+    m_local = -(-len(ranks[0]["ep"]["sizes"]) // world)
+    widths = (m_local * ref["hidden"], m_local * max(ranks[0]["ep"]["sizes"]))
+    n = ref["n_nodes"]
+    want = {str((n, n, w)): 2 * LAST_EPOCHS for w in widths}
+    shapes = [r["ep"]["shapes"] for r in ranks]
+    errs = [near(f"EP rank {i} losses", r["ep"]["losses"], ref["ep_losses"])
+            for i, r in enumerate(ranks)]
+    for which in ("ep_params", "seq_params"):
+        errs += [near(f"EP rank 0 {k} vs {which}", ep0[k], w)
+                 for k, w in ref[which].items()]
+    if shapes != [want] * world:
+        fail(f"{tag} EP: launches by plan shape {shapes}, expected {want} a rank")
+    if any(r["ep"]["params"] != ranks[0]["ep"]["params"] for r in ranks):
+        fail(f"{tag} EP: the ranks' members differ")
+    out["ep"] = {"launches": shapes, "max_abs_err": max(errs), "widths": widths,
+                 "step_ms": [r["ep"]["step_ms"] for r in ranks],
+                 "seconds": [r["ep"]["seconds"] for r in ranks]}
+    log(f"  {tag} EP ({len(ranks[0]['ep']['sizes'])} members, {m_local} a rank, "
+        f"{LAST_EPOCHS} epochs, dropout 0): launches per rank {shapes} (expected {want}); "
+        f"losses and rank 0's members within {max(errs):.3e} of the single device's batched "
+        f"and sequential runs; step ms per rank {[round(r['ep']['step_ms'], 3) for r in ranks]} "
+        f"(single device, all members: {ref['ep_step_ms']:.3f})")
+
+    # (d) TP beside each graph partition
+    for name in TP_GRAPH_MODES:
+        out[name] = check_mode16(tag, name, [r[name] for r in ranks], tp_ref,
+                                 modes=TP_GRAPH_MODES)
+    return out
+
+
+def last_multi_device_paths(args, card, cfg, g, n_classes: int, cat1, cat2, plan, gen, dev,
+                            tp_ref: dict, world: int = 0):
+    """Phase 17: the last multi-device paths on phase 2's corpus and graph.
+    (a) document-sharded counting over every visible card against the
+    native kernel, beside the device backend; (b)-(d) the data-parallel MLP
+    at the Amazon protocol's size, the per-label ensemble across ranks and
+    EGCN cut by columns beside each graph partition, each against its
+    single-device run (``tp_ref``: phase 16's EGCN), at world 1 over NCCL
+    and on ``SHARED_RANKS`` ranks sharing the card over gloo (``world`` 0),
+    or on ``world`` cards over NCCL; with phase 3's ``plan``, the kernel on
+    a DP rank's plans and at an EP rank's width (2 ranks), timed; (e)
+    ``benchmark_scaling``, short, over 1, 2 and 4 of the visible cards.
+    Each fatal. Returns (the summary, the CSR kernel's errors, its rows)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from scipy import sparse as sp
+
+    from pytextgcn_tpu_torch.baselines import train_mlp
+    from pytextgcn_tpu_torch.baselines.mlp_pipeline import mlp_train_step, row_block
+    from pytextgcn_tpu_torch.build import windows
+    from pytextgcn_tpu_torch.config import make_model, parse_config
+    from pytextgcn_tpu_torch.experiments import benchmark_scaling
+    from pytextgcn_tpu_torch.experiments import mlp as mlp_driver
+    from pytextgcn_tpu_torch.hierarchy import train_per_label
+    from pytextgcn_tpu_torch.models import SparseMatrix, export_params
+    from pytextgcn_tpu_torch.ops import spmm_cuda
+    from pytextgcn_tpu_torch.parallel import Mesh
+    from pytextgcn_tpu_torch.train.optim import resolve_optimizer
+
+    kernel, plain, mag = (spmm_cuda.spmm_csr_kernel, spmm_cuda.spmm_csr_reference,
+                          spmm_cuda.spmm_csr_abs)
+    n = g.n_nodes
+    out, errs, rows = {}, [], {"dp": [], "ep": []}
+    log(f"[17/17] the last multi-device paths on phase 2's corpus and graph (N={n}):")
+
+    # ---- (a) document-sharded counting over every visible card
+    tokens, n_vocab, _ = corpus_tokens(cfg, g)
+    w = cfg.graph.window_size
+    native = windows.word_word_edges(tokens, n_vocab, w, backend="native", n_jobs=8)
+    cards = windows.sharded_devices()
+
+    def counted(fn, on):
+        """``fn``'s result, seconds and peak memory on each device of ``on``
+        above what each held before (GB)."""
+        base = []
+        for d in on:
+            torch.cuda.synchronize(d)
+            base.append(torch.cuda.memory_allocated(d))
+            torch.cuda.reset_peak_memory_stats(d)
+        t0 = time.perf_counter()
+        got = fn()
+        for d in on:
+            torch.cuda.synchronize(d)
+        secs = time.perf_counter() - t0
+        peaks = [(torch.cuda.max_memory_allocated(d) - b0) / 1e9 for d, b0 in zip(on, base)]
+        same = (got[2] == native[2] and np.array_equal(got[0], native[0])
+                and got[1].tobytes() == native[1].tobytes())
+        return secs, peaks, same
+
+    counting = {"cards": len(cards), "tokens_shape": list(tokens.shape), "n_vocab": n_vocab}
+    for label, fn, on in (
+            ("sharded", lambda: windows.word_word_edges_sharded(tokens, n_vocab, w), cards),
+            ("sharded again", lambda: windows.word_word_edges_sharded(tokens, n_vocab, w),
+             cards),
+            ("device", lambda: windows.word_word_edges_device(tokens, n_vocab, w,
+                                                              device=cards[0]), cards[:1])):
+        secs, peaks, same = counted(fn, on)
+        counting[label] = {"seconds": secs, "peak_memory_gb": peaks, "bitwise_equal": same}
+        log(f"  (a) {label} counting over {len(on)} card(s): {secs:.3f}s, peak memory a card "
+            f"{[round(p, 3) for p in peaks]} GB above its baseline; equal to the native "
+            f"kernel bit for bit: {same}")
+        if not same:
+            fail(f"(a) {label} counting differs from the native kernel")
+    out["counting"] = counting
+    del tokens, native
+
+    # ---- the inputs of (b)-(d), and their single-device runs
+    mcfg = parse_config(["--dataset", "synthetic-amazon", "--n-docs", str(args.n_docs),
+                         "--train-verbose", "0"])
+    splits, _ = mlp_driver.build_splits(mcfg, mlp_driver.default_levels(mcfg.dataset))
+    mlp_kw = {**mlp_driver.train_kwargs(mcfg, set()), "dropout": 0.0, "epochs": LAST_EPOCHS,
+              "early_stopping": False}
+    mlp_kw.pop("device", None)
+    mlp_classes = int(np.max(splits.y_train[0])) + 1
+    zcfg = parse_config(["--model-n-hidden", str(cfg.model.n_hidden), "--model-dropout", "0"])
+    ref = {"n_nodes": n, "hidden": cfg.model.n_hidden, "mlp_shape": list(splits.x_train.shape),
+           "mlp_val_rows": splits.x_val.shape[0], "mlp_hidden": mlp_kw["hidden"][0]}
+    model, hist = train_mlp(splits.x_train, splits.y_train[0], splits.x_val, splits.y_val[0],
+                            mlp_classes, device=dev, **mlp_kw)
+    ref["mlp_history"] = hist
+    ref["mlp_params"] = leaves(export_params(model))
+    xs = SparseMatrix.from_scipy(splits.x_train, use_pallas=True, device=dev)
+    y_tr = torch.as_tensor(np.asarray(splits.y_train[0], np.int64), device=dev)
+    opt = resolve_optimizer("adam", model.parameters(), mlp_kw["lr"])
+    sgen = torch.Generator(device=dev).manual_seed(0)
+    ref["mlp_step_ms"] = host_step_ms(lambda: mlp_train_step(model, opt, xs, y_tr, sgen), reps=10)
+    del model, opt, xs
+    factory = lambda: (lambda i, o, gen_=torch.Generator().manual_seed(44):
+                       make_model(zcfg.model, i, o, generator=gen_))
+    kw = dict(epochs=LAST_EPOCHS, seed=44, lr=cfg.train.lr, trainer_kwargs={"device": dev})
+    single = train_per_label(g, cat2, cat1, factory(), ep=True, **kw)
+    ref["ep_losses"] = [[r["loss"] for r in h] for h in single["histories"]]
+    ref["ep_params"] = {f"m{i}/{k}": v for i, t in enumerate(single["trainers"])
+                        for k, v in leaves(export_params(t.model)).items()}
+    ref["ep_step_ms"] = host_step_ms(ep_block_step(single["trainers"], g, cat1, cat2), reps=10)
+    del single
+    seq = train_per_label(g, cat2, cat1, factory(), **kw)
+    ref["seq_params"] = {f"m{i}/{k}": v for i, t in enumerate(seq["trainers"])
+                         for k, v in leaves(export_params(t.model)).items()}
+    del seq
+    torch.cuda.empty_cache()
+    log(f"  single device: MLP step {ref['mlp_step_ms']:.3f} ms (train "
+        f"[{splits.x_train.shape[0]}, {splits.x_train.shape[1]}], H={ref['mlp_hidden']}); "
+        f"batched ensemble step {ref['ep_step_ms']:.3f} ms (6 members, H={ref['hidden']})")
+
+    with tempfile.TemporaryDirectory() as inputs_dir:
+        g.save(os.path.join(inputs_dir, "graph.npz"))
+        sp.save_npz(os.path.join(inputs_dir, "x_train.npz"), sp.csr_matrix(splits.x_train))
+        sp.save_npz(os.path.join(inputs_dir, "x_val.npz"), sp.csr_matrix(splits.x_val))
+        np.savez(os.path.join(inputs_dir, "labels.npz"), y_train=splits.y_train[0],
+                 y_val=splits.y_val[0], cat1=cat1, cat2=cat2)
+        with open(os.path.join(inputs_dir, "meta.json"), "w") as f:
+            json.dump({"mlp_kw": mlp_kw, "mlp_classes": mlp_classes, "lr": cfg.train.lr,
+                       "zmodel_cfg": dataclasses.asdict(zcfg.model),
+                       "model_cfg": dataclasses.asdict(cfg.model), "n_classes": n_classes}, f)
+        groups = ([(1, "nccl"), (SHARED_RANKS, "gloo")] if not world else [(world, "nccl")])
+        for d, backend in groups:
+            ranks, dp0, ep0, secs = run_last_paths(d, backend, inputs_dir, dev)
+            how = "sharing one card over gloo" if backend == "gloo" else "over NCCL"
+            tag = "(b-d) world 1 over NCCL" if d == 1 else f"(b-d) {d} ranks {how}"
+            summary = check_last_paths(tag, ranks, dp0, ep0, ref, tp_ref)
+            summary["seconds"] = secs
+            out[f"world{d}_{backend}"] = summary
+
+    # ---- the kernel on a DP rank's plans and at an EP rank's width, 2 ranks
+    h1 = ref["mlp_hidden"]
+    for r in range(SHARED_RANKS if plan is not None else 0):
+        blk = row_block(Mesh(None, r, SHARED_RANKS, dev), splits.x_train, splits.y_train[0])
+        for pname, csr in (("fwd", blk.xs.plan.fwd), ("bwd", blk.xs.plan.bwd)):
+            x = torch.randn(csr.n_cols, h1, generator=gen, device=dev)
+            err = compare(f"DP rank {r} of {SHARED_RANKS} {pname} [{csr.n_rows}, {csr.n_cols}] "
+                          f"H={h1}", kernel(csr, x), plain(csr, x), mag(csr, x), F32_RTOL)
+            errs.append(err)
+            lib = sparse_csr(csr)
+            _, _, bound, bound_by = spmm_work(csr, h1, 4)
+            row = {"rank": r, "plan": pname, "shape": [csr.n_rows, csr.n_cols],
+                   "edges": csr.n_edges, "h": h1, "max_abs_err": err,
+                   "ms": time_ms(lambda: kernel(csr, x), 30),
+                   "plain_ms": time_ms(lambda: plain(csr, x), 3, warmup=1),
+                   "library_ms": time_ms(lambda: torch.sparse.mm(lib, x), 10),
+                   "bound_ms": bound, "bound_by": bound_by}
+            rows["dp"].append(row)
+            log(f"    DP rank {r} {pname} [{csr.n_rows}, {csr.n_cols}] H={h1} ({csr.n_edges} "
+                f"nonzeros): kernel {row['ms']:.4f} ms, bound {bound:.4f} ms by {bound_by}, "
+                f"plain {row['plain_ms']:.4f}, torch.sparse.mm {row['library_ms']:.4f}")
+        del blk
+    width = -(-6 // SHARED_RANKS) * cfg.model.n_hidden
+    x = None if plan is None else torch.randn(n, width, generator=gen, device=dev)
+    for pname, csr in (() if plan is None else (("fwd", plan.fwd), ("bwd", plan.bwd))):
+        err = compare(f"EP rank's width {pname} H={width}", kernel(csr, x),
+                      chunked(plain, csr, x), chunked(mag, csr, x), F32_RTOL)
+        errs.append(err)
+        lib = sparse_csr(csr)
+        _, _, bound, bound_by = spmm_work(csr, width, 4)
+        row = {"plan": pname, "shape": [csr.n_rows, csr.n_cols], "edges": csr.n_edges,
+               "h": width, "max_abs_err": err, "ms": time_ms(lambda: kernel(csr, x), 20),
+               "plain_ms": time_ms(lambda: chunked(plain, csr, x), 1, warmup=1),
+               "library_ms": time_ms(lambda: torch.sparse.mm(lib, x), 5),
+               "bound_ms": bound, "bound_by": bound_by}
+        rows["ep"].append(row)
+        log(f"    EP rank's width {pname} H={width}: kernel {row['ms']:.4f} ms, bound "
+            f"{bound:.4f} ms by {bound_by}, plain {row['plain_ms']:.4f}, torch.sparse.mm "
+            f"{row['library_ms']:.4f}")
+    del x
+
+    # ---- (e) benchmark_scaling, short
+    counts = [d for d in (1, 2, 4) if d <= torch.cuda.device_count()]
+    t0 = time.perf_counter()
+    scaling = benchmark_scaling.main(["--ranks", *map(str, counts), "--repeats", "10",
+                                      "--audit-comm"])
+    secs = time.perf_counter() - t0
+    bad = [r for r in scaling if r["wire_rows"] != r["comm_rows"] or not r["ms"] > 0]
+    log(f"  (e) benchmark_scaling --ranks {counts} --audit-comm in {secs:.1f}s: "
+        + "; ".join(f"{r['ranks']} {r['mode']} {r['ms']:.3f} ms, eff {r['efficiency']:.3f}, "
+                    f"wire {r['wire_rows']:.0f} rows (model {r['comm_rows']})" for r in scaling))
+    if len(scaling) != 1 + 3 * (len(counts) - 1) or bad:
+        fail(f"(e) benchmark_scaling: {len(scaling)} lines, wire rows off the model in {bad}")
+    out["benchmark_scaling"] = {"rows": scaling, "seconds": secs}
+    return out, errs, rows
+
+
 def main_config(args, hidden: int):
     """Phase 2's flat configuration: synthetic-amazon at ``args.n_docs``
     documents, the CSR kernel."""
@@ -2638,16 +3145,18 @@ def main_config(args, hidden: int):
 
 
 def nccl_ranks(args) -> int:
-    """``--nccl-ranks N``: phase 15's two partitions and phase 16's modes
-    over NCCL on phase 2's graph, one rank a card on N cards
-    (``torch.multiprocessing``), against the single-device runs on card 0,
-    each check fatal."""
+    """``--nccl-ranks N``: phase 15's two partitions, phase 16's modes and
+    phase 17 (sharded counting over the N cards, the data-parallel MLP,
+    the ensemble and EGCN beside each graph partition over N ranks,
+    ``benchmark_scaling`` over 1, 2 and 4 cards) over NCCL on phase 2's
+    corpus and graph, one rank a card (``torch.multiprocessing``), against
+    the single-device runs on card 0, each check fatal."""
     import dataclasses
 
     import torch
 
     from pytextgcn_tpu_torch.config import make_model
-    from pytextgcn_tpu_torch.experiments import flat
+    from pytextgcn_tpu_torch.experiments import common, flat
     from pytextgcn_tpu_torch.ops import fused_dual as fd
     from pytextgcn_tpu_torch.ops import spmm_cuda
     from pytextgcn_tpu_torch.train import Trainer
@@ -2688,6 +3197,11 @@ def nccl_ranks(args) -> int:
                                              [r[name] for r in ranks16], refs[name])
                           for name in PHASE16_MODES}
     summary["phase16"]["seconds"] = secs16
+    # phase 17's multi-device paths over NCCL, against the single devices on card 0
+    _, (cat1, cat2), _, _ = common.load_corpus(cfg, levels=["Cat1", "Cat2"])
+    summary["phase17"], _, _ = last_multi_device_paths(
+        args, card, cfg, g, n_classes, cat1, cat2, None, None, torch.device("cuda", 0),
+        refs["egcn_tp"], world=world)
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(json.dumps({"nccl_ranks": summary}), flush=True)
     print(card, flush=True)
@@ -2707,8 +3221,8 @@ def main(argv=None) -> int:
     ap.add_argument("--allocator-timing", action="store_true",
                     help="only the graph and plan builds, timed (phase 14)")
     ap.add_argument("--nccl-ranks", type=int, default=0,
-                    help="only phases 15 and 16 over NCCL, one rank a card on this many "
-                         "cards")
+                    help="only phases 15, 16 and 17 over NCCL, one rank a card on this "
+                         "many cards")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "pytextgcn_tpu_torch")):
@@ -2769,7 +3283,7 @@ def main(argv=None) -> int:
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/16] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
+    log(f"[1/17] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
         f"kernel, four of the dual kernel) and the native library in "
         f"{time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
@@ -2784,7 +3298,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     g, n_classes = flat.build_graph(cfg)
     n, e = g.n_nodes, g.n_edges
-    log(f"[2/16] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
+    log(f"[2/17] graph in {time.perf_counter() - t0:.1f}s: N={n} E={e} "
         f"(vocab {g.n_vocab}, docs {g.n_docs}), {n_classes} classes")
     widths = (hidden, n_classes)
 
@@ -2792,7 +3306,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     adj = NormAdj.from_graph(g, use_pallas=True, device=dev)
     plan = adj.plan
-    log(f"[3/16] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
+    log(f"[3/17] plan in {time.perf_counter() - t0:.1f}s: {plan.fwd.seg_row.shape[0]} "
         f"segments, {plan.fwd.n_partials} partial rows (fwd); checks:")
     gen = torch.Generator(device=dev).manual_seed(0)
     f32_errs, bf16_errs = [], []
@@ -2853,7 +3367,7 @@ def main(argv=None) -> int:
     evals = sum("val_f1" in rec for rec in hist) + 1  # + evaluate()
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
-    log(f"[4/16] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
+    log(f"[4/17] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
         f"passes, kernel launches {launches} (expected {expected}); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; test acc {res['accuracy']:.4f}, "
         f"macro-F1 {res['f1_macro']:.4f}; peak memory {peak_gb:.2f} GB")
@@ -2908,14 +3422,14 @@ def main(argv=None) -> int:
     plan_s = time.perf_counter() - t0
     k = hplan.k
     d_bytes = 2 * hplan.d_full.numel() * hplan.d_full.element_size()
-    log(f"[5/16] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
+    log(f"[5/17] hybrid plan in {plan_s:.1f}s: K={k}, f32 mode split2 (D as a bf16 hi/lo "
         f"pair of {d_bytes / 1e6:.1f} MB), {hplan.n_resid} residual edges "
         f"({hplan.n_resid / e:.1%} of E) on the CSR kernel")
     if hplan.d_lo is None or tuple(hplan.d_full.shape) != (n, k) or k != HOT_K:
         fail(f"hybrid plan: K={k}, D {tuple(hplan.d_full.shape)}, split {hplan.d_lo is not None}")
 
     # ------------------------------------------------------------ 6. dual kernel
-    log("[6/16] the dual kernel against its plain version (tolerance relative to "
+    log("[6/17] the dual kernel against its plain version (tolerance relative to "
         "|D| @ |xh| and |D|^T @ |x|):")
     pair = (hplan.d_full, hplan.d_lo)
     d32 = pair[0].float() + pair[1].float()  # the f32 D of the f32 variant
@@ -2987,7 +3501,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 7. hybrid SpMM
-    log(f"[7/16] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
+    log(f"[7/17] spmm on the hybrid plan against spmm_segment (tolerance {SPLIT2_RTOL:g} "
         f"of |A_hat| @ |x|):")
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev, requires_grad=True)
@@ -3025,7 +3539,7 @@ def main(argv=None) -> int:
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
     path_launches = {"split": hcounts["dual"].get("split", 0)}
-    log(f"[8/16] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
+    log(f"[8/17] hybrid path (K={HOT_K}, split2) in {hsecs:.1f}s: {steps} train steps, "
         f"{evals} forward-only passes; dual kernel launches {hcounts['dual']}, CSR kernel "
         f"launches {hcounts['csr']} (expected {expected} each); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; test acc {hres['accuracy']:.4f}, macro-F1 {hres['f1_macro']:.4f}; "
@@ -3074,7 +3588,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 9. times
-    log(f"[9/16] times on {card} (CUDA events, warm, per launch):")
+    log(f"[9/17] times on {card} (CUDA events, warm, per launch):")
     by_width = []
     for h in widths:
         x = torch.randn(n, h, generator=gen, device=dev)
@@ -3268,7 +3782,7 @@ def main(argv=None) -> int:
     f32_errs += slice10_errs
 
     # ------------------------------------------------------------ 14. tooling, drivers
-    log("[14/16] tooling and the last experiment scripts:")
+    log("[14/17] tooling and the last experiment scripts:")
     probe_out, pr = probe_against_spec(card, dev)
     slice11 = tooling_and_drivers(args, card, g, dev, pr)
     slice11["probe"] = probe_out
@@ -3284,6 +3798,18 @@ def main(argv=None) -> int:
     f32_errs += slice13_errs["csr"]
     dual_errs["f32"] += slice13_errs["f32"]
     dual_errs["bf16"] += slice13_errs["bf16"]
+
+    # ------------------------------------------------------------ 17. the last multi-device paths
+    slice14, slice14_errs, last_rows = last_multi_device_paths(
+        args, card, cfg, g, n_classes, cat1, cat2, plan, gen, dev,
+        slice13["single_device"]["egcn_tp"])
+    f32_errs += slice14_errs
+
+    def launches17(key):
+        """Phase 17's launches by plan shape of the DP MLP ('dp') or the
+        ensemble ('ep'), a list over the ranks, by group."""
+        return {group: res[key]["launches"] for group, res in slice14.items()
+                if isinstance(res, dict) and key in res}
 
     def launches16(key):
         """Phase 16's launches of a kernel ('csr', 'dual_f32', 'dual_bf16')
@@ -3357,6 +3883,11 @@ def main(argv=None) -> int:
         "launches_sharded_hybrid": launches16("csr"),
         "sharded_hybrid_residual_plans": rank_rows["csr"],
         "sharded_hybrid_training": slice13,
+        "launches_dp_mlp": launches17("dp"),
+        "launches_ep_across_ranks": launches17("ep"),
+        "dp_rank_plans": last_rows["dp"],
+        "ep_rank_width": last_rows["ep"],
+        "last_multi_device_paths": slice14,
     },
         {**dual_entry("split", "pytextgcn_tpu/ops/fused_dual.py:185",
                       f"flat.run --train-hybrid-k {HOT_K} (f32 split2, the default), "
@@ -3371,6 +3902,9 @@ def main(argv=None) -> int:
                       "--train-hybrid-f32-mode highest, 3 epochs"),
          "hot_reduction": hot_reduction["f32"], "timing_builds": limits["f32"],
          "launches_sharded_hybrid": launches16("dual_f32"),
+         "launches_tp_hybrid": {group: res["tp_hybrid"]["launches"]
+                                for group, res in slice14.items()
+                                if isinstance(res, dict) and "tp_hybrid" in res},
          "per_rank_d_block": [r for r in rank_rows["dual"] if r["variant"] == "f32"]},
         {**dual_entry("bf16", "pytextgcn_tpu/ops/fused_dual.py:53",
                       f"flat.run --train-hybrid-k {HOT_K} --train-hybrid-fused on "

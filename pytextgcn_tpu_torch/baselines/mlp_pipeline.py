@@ -1,8 +1,9 @@
 """TF-IDF + MLP baselines: flat, per-level cascade, per-label ensemble.
 
 Port of ``pytextgcn_tpu/baselines/mlp_pipeline.py`` (the reference's
-MLP_flat.py / MLP_level.py / MLP_label.py + mlp_helper.py), all but its
-data-parallel step. Semantics kept:
+MLP_flat.py / MLP_level.py / MLP_label.py + mlp_helper.py), its
+data-parallel step over the ranks of a process group included. Semantics
+kept:
 
 * features: TfidfVectorizer-equivalent fit on the *train* split only
   (sklearn 'english' stopword list, max_df=0.9 — mlp_helper.py:38,88),
@@ -20,7 +21,8 @@ The sparse first layer runs in the CSR kernel (``use_pallas``, the default
 here as everywhere in the port): per epoch one launch on the train plan
 S ``[B, V]``, one on its transpose Sᵀ ``[V, B]`` for the first layer's
 weight gradient, and one on the validation plan; ``_predict`` adds one on
-the test plan.
+the test plan. The data-parallel step (``train_mlp(mesh=)``) runs the same
+launches on each rank's row block of the train matrix and its transpose.
 """
 
 from __future__ import annotations
@@ -35,10 +37,14 @@ from scipy import sparse as sp
 from ..build.stopwords import get_stopwords
 from ..build.vectorizer import CountVectorizer, TfidfTransform
 from ..models.mlp import MLP, SparseMatrix
+from ..parallel.sharded import Mesh, all_reduce_sum
 from ..train.metrics import accuracy, macro_f1, masked_cross_entropy
 from ..train.optim import resolve_optimizer
 from ..train.trainer import dropout_seed
 from ..utils import resolve_device
+
+# the golden-ratio step between the ranks' dropout seeds
+_RANK_STRIDE = 0x9E3779B97F4A7C15
 
 
 @dataclasses.dataclass
@@ -110,6 +116,71 @@ def mlp_train_step(model: MLP, opt: torch.optim.Optimizer, xs: SparseMatrix, y: 
     return loss.detach()
 
 
+def rank_dropout_seed(seed: int, rank: int) -> int:
+    """The dropout seed of rank ``rank`` of a data-parallel run seeded
+    ``seed``: rank 0 draws the single-device stream (:func:`dropout_seed`),
+    each other rank a stream of its own, none the parameters' stream (the
+    JAX step folds the device index into its key)."""
+    return (dropout_seed(seed) + rank * _RANK_STRIDE) % 2**63
+
+
+@dataclasses.dataclass
+class RowBlock:
+    """Rank ``rank``'s block of ``b = ceil(n / D)`` train rows on its device:
+    rows ``[rank * b, (rank + 1) * b)``, the last block padded with empty
+    rows whose mask is False. ``xs`` holds the ``[b, F]`` plan and its
+    ``[F, b]`` transpose."""
+
+    xs: SparseMatrix
+    y: torch.Tensor
+    mask: torch.Tensor
+
+
+def row_block(mesh, x: sp.csr_matrix, y, use_pallas: bool = True) -> RowBlock:
+    """This rank's :class:`RowBlock` of ``x`` and ``y`` (the JAX step's
+    host-side partition, ``_make_dp_step``)."""
+    x = sp.csr_matrix(x)
+    n, f = x.shape
+    b = -(-n // mesh.world_size)
+    lo, hi = min(mesh.rank * b, n), min((mesh.rank + 1) * b, n)
+    block = x[lo:hi]
+    indptr = np.concatenate([block.indptr, np.full(b - (hi - lo), block.indptr[-1])])
+    padded = sp.csr_matrix((block.data, block.indices, indptr), shape=(b, f))
+    y_b = np.zeros(b, np.int64)
+    y_b[:hi - lo] = np.asarray(y)[lo:hi]
+    mask = torch.zeros(b, dtype=torch.bool)
+    mask[:hi - lo] = True
+    dev = mesh.device
+    return RowBlock(SparseMatrix.from_scipy(padded, use_pallas=use_pallas, device=dev),
+                    torch.as_tensor(y_b, device=dev), mask.to(dev))
+
+
+def dp_train_step(model: MLP, opt: torch.optim.Optimizer, mesh, blk: RowBlock,
+                  generator: torch.Generator) -> torch.Tensor:
+    """One data-parallel step: each rank backprops the cross-entropy *sum*
+    over its masked rows; the loss sum, the row count and every gradient are
+    summed over the ranks in one ``all_reduce`` and divided by the count, so
+    the update is the full-batch gradient up to summation order and every
+    rank's parameters stay equal. Returns the mean loss."""
+    opt.zero_grad(set_to_none=True)
+    logits = model(blk.xs, train=True, generator=generator)
+    nll = -torch.log_softmax(logits, dim=-1).gather(-1, blk.y[:, None])[:, 0]
+    m = blk.mask.to(logits.dtype)
+    loss_sum = (nll * m).sum()
+    loss_sum.backward()
+    params = list(model.parameters())
+    flat = torch.cat([p.grad.flatten() for p in params]
+                     + [loss_sum.detach().reshape(1), m.sum().reshape(1)])
+    all_reduce_sum(mesh, flat)
+    denom = flat[-1].clamp(min=1.0)
+    off = 0
+    for p in params:
+        p.grad.copy_(flat[off:off + p.numel()].view_as(p) / denom)
+        off += p.numel()
+    opt.step()
+    return flat[-2] / denom
+
+
 def train_mlp(
     x_train: sp.csr_matrix,
     y_train: np.ndarray,
@@ -137,16 +208,27 @@ def train_mlp(
     The validation macro-F1 is computed on the device every epoch; with
     ``early_stopping`` the host reads it each epoch for
     :func:`patience_stop`. ``device``: None means the GPU (raises without
-    one). ``mesh``: the JAX package's data-parallel step, not ported.
+    one).
+
+    ``mesh``: a ``parallel.Mesh`` (``make_mesh(axis="data")``): training
+    then runs **data parallel** over its ranks, one process a rank, as the
+    JAX package's ``train_mlp(mesh=)`` does over a mesh axis. Rank ``r``
+    holds its :class:`RowBlock` of the train rows and steps with
+    :func:`dp_train_step`; its dropout draws from the stream
+    :func:`rank_dropout_seed` gives it. Every rank computes the validation
+    macro-F1 on the whole validation set, so each reaches the same stopping
+    decision at the same epoch and returns the same model. The trainer
+    runs on the mesh's device (``device`` must be None or the same).
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel MLP step (mesh=) is not ported yet: it comes with "
-            "the parallel slice, ROADMAP.md §1 item 4c")
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh (make_mesh(axis='data')), "
+                            f"got {type(mesh).__name__}")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        device = mesh.device
     dev = resolve_device(device)
-    xs_tr = SparseMatrix.from_scipy(x_train, use_pallas=use_pallas, device=dev)
     xs_va = SparseMatrix.from_scipy(x_val, use_pallas=use_pallas, device=dev)
-    y_tr = torch.as_tensor(np.asarray(y_train, np.int64), device=dev)
     y_va = torch.as_tensor(np.asarray(y_val, np.int64), device=dev)
     # a per-label member's validation child outside its train classes maps to
     # n_classes; the JAX confusion matrix's segment_sum drops those rows
@@ -156,11 +238,19 @@ def train_mlp(
                 generator=torch.Generator().manual_seed(seed))
     model.to(dev)
     opt = resolve_optimizer("adam", model.parameters(), lr)  # MLP_flat.py:68
-    gen = torch.Generator(device=dev).manual_seed(dropout_seed(seed))
+    if mesh is None:
+        xs_tr = SparseMatrix.from_scipy(x_train, use_pallas=use_pallas, device=dev)
+        y_tr = torch.as_tensor(np.asarray(y_train, np.int64), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(dropout_seed(seed))
+        step = lambda: mlp_train_step(model, opt, xs_tr, y_tr, gen)
+    else:
+        blk = row_block(mesh, x_train, y_train, use_pallas)
+        gen = torch.Generator(device=dev).manual_seed(rank_dropout_seed(seed, mesh.rank))
+        step = lambda: dp_train_step(model, opt, mesh, blk, gen)
 
     losses, f1s, f1_host = [], [], []
     for epoch in range(epochs):
-        losses.append(mlp_train_step(model, opt, xs_tr, y_tr, gen))
+        losses.append(step())
         with torch.no_grad():
             pred_va = model(xs_va).argmax(dim=-1)
             f1s.append(macro_f1(pred_va, y_va.clamp(max=n_classes - 1), mask_va, n_classes))

@@ -41,9 +41,10 @@ class Text2Graph:
         """Parameter set mirrors the reference (text2graph.py:50-52);
         ``sparse_features`` is gone because features are always implicit, and
         ``backend`` selects the word-word counting kernel
-        ('auto'/'native'/'device'/'oracle'; see
+        ('auto'/'native'/'device'/'sharded'/'oracle'; see
         :func:`.windows.word_word_edges`), and ``device`` where 'device'
-        counting runs (None = the GPU; resolved only when it runs).
+        counting runs (None = the GPU; resolved only when it runs) and
+        'sharded' counting spreads (None: every visible card).
 
         ``n_jobs``: thread count for the native counting kernel. The
         reference documents this knob but never uses it (graphbuilder.pyx:36);

@@ -4,9 +4,9 @@ The port of ``pytextgcn_tpu/build/windows.py``: the exact numpy oracle, the
 PMI finalization, the dispatch to the native C++ counting kernel
 (``native/graphbuilder.cpp``) and the sparse device counting path
 (:func:`word_word_edges_device`: torch sort/unique on the card, for
-vocabularies whose packed count triangle is too large for the host). The
-document-sharded backend ('sharded') is not ported yet (ROADMAP.md); asking
-for it raises instead of running something else.
+vocabularies whose packed count triangle is too large for the host) and
+its document-sharded form over several devices
+(:func:`word_word_edges_sharded`).
 
 Reference semantics (textgcn/lib/clib/graphbuilder.pyx):
 
@@ -27,7 +27,8 @@ Reference semantics (textgcn/lib/clib/graphbuilder.pyx):
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple, Union
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -211,6 +212,39 @@ def _iter_chunks(tokens: np.ndarray, window_size: int, chunk_pair_budget: int):
             yield chunk, idx.size
 
 
+def _check_tokens(tokens: np.ndarray, n_vocab: int) -> np.ndarray:
+    tokens = np.ascontiguousarray(tokens, dtype=np.int32)
+    if tokens.size and (tokens.min() < -1 or tokens.max() >= n_vocab):
+        raise ValueError(f"token ids must lie in [0, {n_vocab}) (padding -1)")
+    return tokens
+
+
+def _count_on(tokens: np.ndarray, n_vocab: int, window_size: int, chunk_pair_budget: int,
+              device: torch.device):
+    """Every chunk of ``tokens`` counted on ``device``, one at a time, each
+    merged at once into the running unique list there. Returns the sorted
+    unique keys and their counts (on ``device``) and the window count."""
+    keys = torch.zeros(0, dtype=torch.int64, device=device)
+    counts = torch.zeros(0, dtype=torch.int64, device=device)
+    n_windows = torch.zeros((), dtype=torch.int64, device=device)
+    n_filler = 0
+    for chunk, n_real in _iter_chunks(tokens, window_size, chunk_pair_budget):
+        ck, cc, cw = _count_chunk(torch.as_tensor(chunk).to(device), window_size, n_vocab)
+        keys, counts = _merge_keyed(keys, counts, ck, cc)
+        n_windows += cw
+        n_filler += chunk.shape[0] - n_real
+    # every row, real or filler, counts its first window: take the fillers'
+    return keys, counts, int(n_windows) - n_filler
+
+
+def _pmi_of_keys(keys: torch.Tensor, counts: torch.Tensor, n_vocab: int, n_windows: int):
+    keys, counts = keys.cpu().numpy(), counts.cpu().numpy()
+    a = (keys // n_vocab).astype(np.int32)
+    b = (keys % n_vocab).astype(np.int32)
+    coo, wgt = pmi_edges_from_pairs(a, b, counts, n_vocab, n_windows)
+    return coo, wgt, n_windows
+
+
 def word_word_edges_device(
     tokens: np.ndarray,
     n_vocab: int,
@@ -232,28 +266,74 @@ def word_word_edges_device(
     tokens: int32 [n_docs, seq_len] padded with -1 (contiguous suffix).
     Returns (coo [E,2] int32, weights [E] float32, n_windows).
     """
-    tokens = np.ascontiguousarray(tokens, dtype=np.int32)
-    if tokens.size and (tokens.min() < -1 or tokens.max() >= n_vocab):
-        raise ValueError(f"token ids must lie in [0, {n_vocab}) (padding -1)")
+    tokens = _check_tokens(tokens, n_vocab)
     if tokens.shape[0] == 0:
         return np.zeros((0, 2), np.int32), np.zeros(0, np.float32), 0
-    device = resolve_device(device)
-    keys = torch.zeros(0, dtype=torch.int64, device=device)
-    counts = torch.zeros(0, dtype=torch.int64, device=device)
-    n_windows = torch.zeros((), dtype=torch.int64, device=device)
-    n_filler = 0
-    for chunk, n_real in _iter_chunks(tokens, window_size, chunk_pair_budget):
-        ck, cc, cw = _count_chunk(torch.as_tensor(chunk).to(device), window_size, n_vocab)
-        keys, counts = _merge_keyed(keys, counts, ck, cc)
-        n_windows += cw
-        n_filler += chunk.shape[0] - n_real
-    keys, counts = keys.cpu().numpy(), counts.cpu().numpy()
-    # every row, real or filler, counts its first window: take the fillers'
-    total_windows = int(n_windows) - n_filler
-    a = (keys // n_vocab).astype(np.int32)
-    b = (keys % n_vocab).astype(np.int32)
-    coo, wgt = pmi_edges_from_pairs(a, b, counts, n_vocab, total_windows)
-    return coo, wgt, total_windows
+    keys, counts, n_windows = _count_on(tokens, n_vocab, window_size, chunk_pair_budget,
+                                        resolve_device(device))
+    return _pmi_of_keys(keys, counts, n_vocab, n_windows)
+
+
+def sharded_devices(device: Optional[Union[str, torch.device]] = None) -> List[torch.device]:
+    """The devices document-sharded counting spreads over: every visible
+    card for None or ``'cuda'`` (raises without one), else the one device
+    named (``'cuda:1'``, ``'cpu'``)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def word_word_edges_sharded(
+    tokens: np.ndarray,
+    n_vocab: int,
+    window_size: int = 20,
+    devices: Optional[Sequence[Union[str, torch.device]]] = None,
+    chunk_pair_budget: int = 1 << 24,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Document-sharded window counting over several devices of this
+    process (port of the JAX package's ``word_word_edges_sharded``).
+
+    Windows never cross a document (graphbuilder.pyx:96: a window starts
+    inside one document's token row), so sharding the documents is exact:
+    the documents are cut into ``len(devices)`` contiguous shards at
+    ``np.linspace(0, n_docs, D + 1)``, each device counts its shard's
+    chunks (:func:`_iter_chunks`) one at a time, merging each into its
+    running unique-pair list as :func:`word_word_edges_device` does, so a
+    device holds its merged list and one chunk's buffers. The host merges
+    the devices' lists, sums their window counts and runs PMI
+    (:func:`pmi_edges_from_pairs`): the edges and weights equal the native
+    kernel's bit for bit. Each device counts on a thread of its own, so the
+    cards count at once: the JAX function dispatches the chunks
+    round-robin from one thread, which in torch would serialize the cards
+    at every ``torch.unique`` (its output size is read on the host).
+
+    ``devices``: None means every visible card (:func:`sharded_devices`);
+    a list may repeat a device (the tests count 8 shards on the CPU).
+    Returns (coo [E,2] int32, weights [E] float32, n_windows).
+    """
+    tokens = _check_tokens(tokens, n_vocab)
+    devs = sharded_devices() if devices is None else [torch.device(d) for d in devices]
+    if not devs:
+        raise ValueError("document-sharded counting needs at least one device")
+    if tokens.shape[0] == 0:
+        return np.zeros((0, 2), np.int32), np.zeros(0, np.float32), 0
+    bounds = np.linspace(0, tokens.shape[0], len(devs) + 1).astype(np.int64)
+    shards = [(tokens[lo:hi], dev) for dev, lo, hi in zip(devs, bounds[:-1], bounds[1:])
+              if hi > lo]
+
+    def count(shard):
+        part, dev = shard
+        keys, counts, n_windows = _count_on(part, n_vocab, window_size, chunk_pair_budget, dev)
+        return keys.cpu(), counts.cpu(), n_windows
+
+    with ThreadPoolExecutor(max_workers=len(shards)) as pool:
+        parts = list(pool.map(count, shards))  # re-raises a shard's exception
+    keys, counts, n_windows = parts[0]
+    for more_keys, more_counts, more_windows in parts[1:]:
+        keys, counts = _merge_keyed(keys, counts, more_keys, more_counts)
+        n_windows += more_windows
+    return _pmi_of_keys(keys, counts, n_vocab, n_windows)
 
 
 def word_word_edges(
@@ -266,7 +346,9 @@ def word_word_edges(
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """Compute word-word PMI edges. ``backend``: 'native' (multithreaded C++
     host kernel), 'device' (sparse torch counting on ``device``, see
-    :func:`word_word_edges_device`), 'oracle' (python-loop clone; tiny
+    :func:`word_word_edges_device`), 'sharded' (the documents sharded over
+    every visible card, or over ``device`` where one is named, see
+    :func:`word_word_edges_sharded`), 'oracle' (python-loop clone; tiny
     inputs only), or 'auto'.
 
     'auto' runs the native kernel while its packed V(V+1)/2 count triangle
@@ -275,8 +357,7 @@ def word_word_edges(
     overrides the limit. ``device`` (None = the GPU) is resolved only when
     the device path runs, so 'auto' under the limit needs no GPU. Where the
     native library fails to build, 'auto' raises: it does not fall back to
-    the device path as the JAX package does. The document-sharded backend
-    ('sharded') is not ported yet and raises.
+    the device path as the JAX package does.
 
     ``n_jobs``: native-kernel thread count; 0 = hardware concurrency.
     Returns (coo [E,2] int32, weights [E] float32, n_windows).
@@ -299,9 +380,8 @@ def word_word_edges(
         )
         return coo, wgt, n_windows
     if backend == "sharded":
-        raise NotImplementedError(
-            "word-word counting backend 'sharded' is not ported yet (ROADMAP.md §1 item 4c)"
-        )
+        return word_word_edges_sharded(tokens, n_vocab, window_size,
+                                       devices=sharded_devices(device))
     raise ValueError(f"unknown backend {backend!r}")
 
 

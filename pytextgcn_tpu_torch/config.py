@@ -12,9 +12,9 @@ differences:
 * ``--device`` picks the device: the GPU when it is not given (the run
   raises if there is none), ``cpu`` runs the kernel's plain version.
 
-Settings whose code is not ported yet are still parsed, and
-:func:`check_ported` stops the run with a message naming ROADMAP.md
-instead of running something else.
+Settings a run would not honour are still parsed, and :func:`check_ported`
+stops the run with a message naming ROADMAP.md instead of running
+something else.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ class GraphConfig:
     max_length: Optional[int] = None
     rm_stopwords: bool = True
     # word-word counting: native (host C++) | device (torch on --device) |
-    # oracle | auto (native, or device above PYTEXTGCN_NATIVE_TRI_BYTES);
-    # sharded is not ported yet
+    # sharded (the documents over every visible card, or over --device) |
+    # oracle | auto (native, or device above PYTEXTGCN_NATIVE_TRI_BYTES)
     backend: str = "auto"
     save_path: Optional[str] = None  # directory for TGData_*.npz artifacts
 
@@ -92,10 +92,11 @@ class TrainConfig:
     # graph partition over ranks (parallel/): off | allgather | halo | hybrid
     # (the sharded hybrid, on the halo's layout); flat experiment only
     sharding: str = "off"
-    # ranks of --train-sharding, one a card (0: every visible card); the
-    # ensemble across devices (--train-ep) is not ported yet (§1 item 4c)
+    # ranks of --train-sharding and of --train-ep, one a card (0: every
+    # visible card; --train-ep on the CPU: one process)
     n_devices: int = 0
-    # per-label: all members in one batched step (hierarchy/perlabel.py)
+    # per-label: all members in one batched step (hierarchy/perlabel.py),
+    # their blocks over the ranks of --train-n-devices
     ep: bool = False
     verbose: int = 1
 
@@ -269,9 +270,8 @@ def sharding_args(cfg: TrainConfig, hybrid_k, device=None) -> dict:
 
 def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = True,
                  sharding: bool = True) -> None:
-    """Stop with a message naming ROADMAP.md when the config asks for
-    anything this port does not have yet, or for an option the run would
-    not honour. ``graph``: the config trains a graph model
+    """Stop with a message naming ROADMAP.md when the config asks for an
+    option the run would not honour. ``graph``: the config trains a graph model
     (experiments/flat.py, perlevel.py and perlabel.py, which refuse
     ``--model-model mlp``); experiments/mlp.py passes False. ``minibatch``:
     the driver can mini-batch (``--train-batch-size > 0``); the hierarchy
@@ -287,7 +287,6 @@ def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = Tr
         # the JAX package's JK network takes no masked head either
         raise SystemExit("--train-masked-head: the JK network has no masked head "
                          "(its LSTM reads every layer's full output)")
-    missing = []
     if cfg.dataset not in DATASETS:
         raise SystemExit(f"--dataset must be one of {', '.join(DATASETS)}, got {cfg.dataset!r}")
     if cfg.model.model not in ("gcn", "egcn", "jk", "mlp"):
@@ -312,8 +311,6 @@ def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = Tr
         if unrun:
             raise SystemExit(f"--train-batch-size > 0 does not run {', '.join(unrun)} (the "
                              "mini-batch step trains on subgraphs; ROADMAP.md)")
-    if cfg.graph.backend == "sharded":
-        missing.append("--graph-backend sharded (§1 item 4c)")
     if sharded is not None:
         if not sharding:
             raise SystemExit(f"--train-sharding {t.sharding}: only the flat experiment partitions "
@@ -333,12 +330,6 @@ def check_ported(cfg: ExperimentConfig, graph: bool = True, minibatch: bool = Tr
         if t.n_devices == 0 and (cfg.device or "cuda").startswith("cpu"):
             raise SystemExit("--train-n-devices 0 means every visible card; on the CPU give "
                              "the number of ranks (--train-n-devices N)")
-    if t.ep and t.n_devices > 1:
-        missing.append(f"--train-ep across --train-n-devices {t.n_devices} (§1 item 4c)")
-    if missing:
-        raise SystemExit(
-            "not ported to pytextgcn_tpu_torch yet (see ROADMAP.md): " + ", ".join(missing)
-        )
 
 
 def make_model(cfg: ModelConfig, in_dim: int, out_dim: int,

@@ -1,12 +1,12 @@
 """Graph-construction benchmark: the corpus -> graph pipeline without
 training, timed for each word-word counting backend.
 
-Port of ``experiments/benchmark_graph.py``: the ``native`` (threaded C++)
-and ``device`` (sort and unique on the card) backends on the small
+Port of ``experiments/benchmark_graph.py``: the ``native`` (threaded C++),
+``device`` (sort and unique on the card) and ``sharded`` (the documents
+over every visible card, or over ``--device``) backends on the small
 synthetic corpus or an open-vocabulary Zipf corpus, and with
 ``--plan-bench`` the hybrid plan built cold and loaded warm through the
-plan cache. Every backend must give the same edges bit for bit. The
-``sharded`` backend is not ported (ROADMAP.md §1 item 4c).
+plan cache. Every backend must give the same edges bit for bit.
 
     python -m pytextgcn_tpu_torch.experiments.benchmark_graph --n-docs 2000
     python -m pytextgcn_tpu_torch.experiments.benchmark_graph --device cpu \\
@@ -27,9 +27,7 @@ from ..build.text2graph import Text2Graph
 from ..data.synthetic import synthetic_corpus
 from ..utils import resolve_device
 
-BACKENDS = ("native", "device")
-SHARDED_REFUSED = ("--backends sharded: not ported to pytextgcn_tpu_torch yet "
-                   "(see ROADMAP.md §1 item 4c)")
+BACKENDS = ("native", "device", "sharded")
 
 
 def zipf_docs(n_docs: int, v_draw: int, n_classes: int):
@@ -53,7 +51,7 @@ def main(argv=None) -> dict:
     p.add_argument("--window-size", type=int, default=20)
     p.add_argument("--min-df", type=int, default=1)
     p.add_argument("--backends", nargs="+", default=list(BACKENDS),
-                   help="counting backends to time: native, device")
+                   help="counting backends to time: native, device, sharded")
     p.add_argument("--corpus", choices=["classes", "zipf"], default="classes",
                    help="'zipf': an open-vocabulary Zipfian corpus (with --min-df 1 and "
                         "--v-draw, large vocabularies)")
@@ -63,10 +61,9 @@ def main(argv=None) -> dict:
                    help="also time the hybrid plan ('auto' K): cold build against warm "
                         "load through the plan cache (ops/plan_cache.py)")
     p.add_argument("--device", default=None,
-                   help="where device counting and the plans run (default: the GPU)")
+                   help="where device counting and the plans run (default: the GPU) and "
+                        "where sharded counting spreads (default: every visible card)")
     args = p.parse_args(argv)
-    if "sharded" in args.backends:
-        raise SystemExit(SHARDED_REFUSED)
     unknown = sorted(set(args.backends) - set(BACKENDS))
     if unknown:
         p.error(f"unknown backends {unknown}: choose from {list(BACKENDS)}")

@@ -187,22 +187,44 @@ def _under_torchrun() -> bool:
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
-def spawn_ranks(cfg: ExperimentConfig, target: Callable, argv: Sequence[str]) -> bool:
-    """Start the ranks ``--train-sharding`` asks for, when this process is
-    not one already: ``--train-n-devices N > 1`` (0: every visible card)
-    local processes, each calling ``target(rank, argv, address, N)``
-    (``torch.multiprocessing``, one card a rank), and wait for them.
-    Returns False, starting nothing, where this process runs alone or is
-    a rank (under torchrun, or in a group it has joined)."""
-    import torch.distributed as dist
-
-    from ..config import sharding_mode
+def rank_count(cfg: ExperimentConfig) -> int:
+    """``--train-n-devices``, with 0 meaning every visible card (one
+    process on the CPU)."""
     from ..utils import resolve_device
 
-    if sharding_mode(cfg.train) is None or _under_torchrun() or dist.is_initialized():
+    if cfg.train.n_devices:
+        return cfg.train.n_devices
+    return torch.cuda.device_count() if resolve_device(cfg.device).type == "cuda" else 1
+
+
+def over_ranks(cfg: ExperimentConfig, ep: bool = False) -> bool:
+    """Whether the run spans a process group: under ``--train-sharding``,
+    or, for a driver that trains the ensemble (``ep``), under ``--train-ep``
+    over more than one rank (torchrun's, or :func:`rank_count`'s)."""
+    from ..config import sharding_mode
+
+    if sharding_mode(cfg.train) is not None:
+        return True
+    return ep and cfg.train.ep and (_under_torchrun() or rank_count(cfg) > 1)
+
+
+def spawn_ranks(cfg: ExperimentConfig, target: Callable, argv: Sequence[str],
+                ep: bool = False) -> bool:
+    """Start the ranks ``--train-sharding`` (or, with ``ep``, ``--train-ep``)
+    asks for, when this process is not one already: ``--train-n-devices N >
+    1`` (0: every visible card) local processes, each calling
+    ``target(rank, argv, address, N)`` (``torch.multiprocessing``, one card
+    a rank), and wait for them. Returns False, starting nothing, where this
+    process runs alone or is a rank (under torchrun, or in a group it has
+    joined)."""
+    import torch.distributed as dist
+
+    from ..utils import resolve_device
+
+    if not over_ranks(cfg, ep) or _under_torchrun() or dist.is_initialized():
         return False
     dev = resolve_device(cfg.device)
-    n = cfg.train.n_devices or torch.cuda.device_count()
+    n = rank_count(cfg)
     if n <= 1:
         return False
     if dev.type == "cuda" and n > torch.cuda.device_count():
@@ -237,13 +259,12 @@ def leave_group() -> None:
 
 
 @contextlib.contextmanager
-def rank0_output(cfg: ExperimentConfig):
-    """Under ``--train-sharding`` join the group (torchrun's, or one of
-    this process alone) and silence every rank's standard output but rank
-    0's, which alone prints, writes the results row and saves."""
-    from ..config import sharding_mode
-
-    if sharding_mode(cfg.train) is None:
+def rank0_output(cfg: ExperimentConfig, ep: bool = False):
+    """Where the run spans a process group (:func:`over_ranks`) join it
+    (torchrun's, or one of this process alone) and silence every rank's
+    standard output but rank 0's, which alone prints, writes the results
+    row and saves."""
+    if not over_ranks(cfg, ep):
         yield
         return
     import torch.distributed as dist

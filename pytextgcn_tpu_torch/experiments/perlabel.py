@@ -9,7 +9,10 @@ members as ``DIR/lvl2-cat{c}`` beside ``DIR/class_mapping.json``;
 predictions instead of their true parent (the reference's quirk, the
 default ``ground_truth``). ``--train-ep true`` trains the members in one
 batched step (one CSR kernel launch of width members x hidden per
-application).
+application); with ``--train-n-devices N > 1`` (0: every visible card)
+the members are spread over N ranks, one process each (NCCL a card; gloo
+on the CPU), each rank stepping its block of them, and rank 0 writes the
+results row (as the JAX driver's ensemble mesh, experiments/perlabel.py).
 
 Examples:
     python -m pytextgcn_tpu_torch.experiments.perlabel --device cpu   # synthetic
@@ -19,6 +22,8 @@ Examples:
         --levels Cat1 Cat2 --graph-max-df 0.6 --save-model models/amazon --eval-only
     python -m pytextgcn_tpu_torch.experiments.perlabel --dataset synthetic-amazon \
         --levels Cat1 Cat2 --graph-max-df 0.6 --train-ep true
+    python -m pytextgcn_tpu_torch.experiments.perlabel --device cpu --train-ep true \
+        --train-n-devices 2
 """
 
 from __future__ import annotations
@@ -72,6 +77,13 @@ def run(cfg, g, y_parent, y_child, route: str = "ground_truth", eval_only: bool 
         out = load_members(cfg, g)
     else:
         gen = torch.Generator().manual_seed(cfg.train.seed)
+        kw = common.trainer_kwargs(cfg, "adam")
+        mesh = None
+        if common.over_ranks(cfg, ep=True):  # the ensemble over the group's ranks
+            from ..parallel import make_mesh
+
+            mesh = make_mesh(axis="ensemble", device=cfg.device)
+            kw["device"] = None  # the mesh's
         out = train_per_label(
             g, y_child, y_parent,
             model_factory=lambda d_in, d_out: make_model(cfg.model, d_in, d_out,
@@ -79,7 +91,7 @@ def run(cfg, g, y_parent, y_child, route: str = "ground_truth", eval_only: bool 
             lr=cfg.train.lr, epochs=cfg.train.epochs, seed=cfg.train.seed,
             verbose=cfg.train.verbose, save_dir=cfg.save_model, ep=cfg.train.ep,
             # the hierarchy protocols' default is plain Adam (perlabel_amazon.py:124)
-            trainer_kwargs=common.trainer_kwargs(cfg, "adam"),
+            trainer_kwargs=kw, mesh=mesh,
         )
 
     parent_pred = None
@@ -100,14 +112,16 @@ def run(cfg, g, y_parent, y_child, route: str = "ground_truth", eval_only: bool 
                        parent_pred=parent_pred, route=route)
     print(f"test accuracy: {m['accuracy']: .4f}")
     print(f"test f1-macro: {m['f1_macro']: .4f}")
-    if cfg.result_file:
+    rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+    if cfg.result_file and rank == 0:
         append_result(cfg.result_file, seed=cfg.train.seed, model=cfg.model.model.upper(),
                       hierarchy="per-label", f1_macro=m["f1_macro"], accuracy=m["accuracy"])
     return {**m, **out}
 
 
-def main(argv=None):
-    argv = list(sys.argv[1:] if argv is None else argv)
+def parse(argv):
+    """``(cfg, levels, route, eval_only)`` of a command line."""
+    argv = list(argv)
     eval_only = "--eval-only" in argv
     if eval_only:
         argv.remove("--eval-only")
@@ -118,9 +132,32 @@ def main(argv=None):
     argv, levels = common.pop_list_flag(argv, "--levels")
     cfg = parse_config(argv)
     check_ported(cfg, minibatch=False, sharding=False)
-    common.exact_f32()
-    g, (y_parent, y_child) = build_graph(cfg, levels or common.default_levels(cfg))
-    return run(cfg, g, y_parent, y_child, route=route, eval_only=eval_only)
+    return cfg, levels, route, eval_only
+
+
+def _main(cfg, levels, route: str, eval_only: bool):
+    with common.rank0_output(cfg, ep=not eval_only):
+        common.exact_f32()
+        g, (y_parent, y_child) = build_graph(cfg, levels or common.default_levels(cfg))
+        return run(cfg, g, y_parent, y_child, route=route, eval_only=eval_only)
+
+
+def _rank_main(rank: int, argv, address: str, n: int) -> None:
+    """One of the ranks :func:`main` starts (``torch.multiprocessing``)."""
+    cfg, levels, route, eval_only = parse(argv)
+    common.join_rank(cfg, address, n, rank)
+    _main(cfg, levels, route, eval_only)
+    common.leave_group()
+
+
+def main(argv=None):
+    """Returns the test metrics and predictions with the members (None in
+    a process that started ranks)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cfg, levels, route, eval_only = parse(argv)
+    if not eval_only and common.spawn_ranks(cfg, _rank_main, argv, ep=True):
+        return None
+    return _main(cfg, levels, route, eval_only)
 
 
 if __name__ == "__main__":

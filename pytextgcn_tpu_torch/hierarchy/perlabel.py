@@ -41,6 +41,7 @@ from ..models.layers import dropout, stacked_bilstm
 from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
 from ..ops.spmm import spmm
+from ..parallel.sharded import Mesh, all_gather_rows
 from ..train.checkpoint import save_checkpoint
 from ..train.metrics import accuracy, macro_f1
 from ..train.optim import resolve_optimizer
@@ -82,9 +83,12 @@ def train_per_label(
     ep: bool = False,
 ):
     """Train one child-label classifier per parent class, one after the
-    other, or, with ``ep`` (or a ``mesh`` of one device: an int device
-    count or an object with a ``devices`` array), all in one batched step
-    (see the module docstring; GCN, EGCN or JK members of one shape).
+    other, or, with ``ep`` (or a ``mesh``), all in one batched step (see
+    the module docstring; GCN, EGCN or JK members of one shape). ``mesh``:
+    a ``parallel.Mesh`` (``make_mesh(axis="ensemble")``) spreads the
+    members over its ranks, one process a rank; the device count 1 (or an
+    object with a one-device ``devices`` array) is the batched step in this
+    process.
 
     Returns ``{"trainers": [...], "mapping": {parent: [global child ids]},
     "histories": [...]}``: the mapping holds, per parent class, the sorted
@@ -94,19 +98,21 @@ def train_per_label(
     parameters, meta ``{"parent", "classes"}``) beside
     ``class_mapping.json``.
     """
-    if mesh is not None:
+    if mesh is not None and not isinstance(mesh, Mesh):
         devices = getattr(mesh, "devices", None)
-        n_dev = (mesh if isinstance(mesh, int) else getattr(mesh, "world_size", None)
-                 or (-1 if devices is None else np.asarray(devices).size))
+        n_dev = mesh if isinstance(mesh, int) else (
+            None if devices is None else np.asarray(devices).size)
         if n_dev != 1:
-            raise NotImplementedError(
-                "the ensemble across devices (parallel/) is not ported yet (see "
-                "ROADMAP.md §1 item 4c); a mesh of one device runs the batched step")
+            raise ValueError(
+                f"mesh={mesh!r}: the ensemble spreads over the ranks of a parallel.Mesh "
+                "(make_mesh(axis='ensemble') in each of its processes); a device count "
+                "or a devices array of one runs the batched step here")
+        mesh = None
         ep = True
-    if ep:
+    if ep or mesh is not None:
         return _train_per_label_ep(g, y_child, y_parent, model_factory, lr=lr, epochs=epochs,
                                    seed=seed, verbose=verbose, save_dir=save_dir,
-                                   trainer_kwargs=trainer_kwargs)
+                                   trainer_kwargs=trainer_kwargs, mesh=mesh)
     trainer_kwargs = dict(trainer_kwargs or {})
     # the reference's per-label driver trains with PLAIN Adam, not amsgrad
     # (perlabel_amazon.py:124)
@@ -164,11 +170,12 @@ def _roles(model: torch.nn.Module) -> List[str]:
 
 
 def _stack_members(models: List[torch.nn.Module], c_list: List[int],
-                   device) -> List[torch.Tensor]:
+                   device, c_max: Optional[int] = None) -> List[torch.Tensor]:
     """The members' parameters stacked in ``parameters()`` order, each as
     its role says (:func:`_roles`): the class-count weight padded with zero
-    columns and its bias with ``_PAD_BIAS``."""
-    c_max = max(c_list)
+    columns and its bias with ``_PAD_BIAS`` to ``c_max`` classes (default:
+    the largest of ``c_list``)."""
+    c_max = max(c_list) if c_max is None else c_max
     out = []
     for role, params in zip(_roles(models[0]), zip(*(m.parameters() for m in models))):
         rows = []
@@ -298,21 +305,47 @@ def _architecture(models) -> Optional[tuple]:
     return keys.pop() if len(keys) == 1 else None
 
 
+def _member_dim(role: str) -> int:
+    """The dimension along which a stacked parameter holds its members."""
+    return 1 if role == "feature" else 0
+
+
+def _gather_members(mesh: Optional[Mesh], t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's block of members of ``t`` along ``dim``, in rank order
+    (``t`` itself without a mesh)."""
+    if mesh is None:
+        return t
+    return all_gather_rows(mesh, t.movedim(dim, 0)).movedim(0, dim)
+
+
 def _train_per_label_ep(g: TextGraph, y_child, y_parent, model_factory, *, lr: float,
                         epochs: int, seed: int, verbose: int, save_dir: Optional[str],
-                        trainer_kwargs: Optional[dict]):
+                        trainer_kwargs: Optional[dict], mesh: Optional[Mesh] = None):
     """All members in one batched train step (the JAX package's
-    ``_train_per_label_ep`` on one device). Each member is initialized by
+    ``_train_per_label_ep``). Each member is initialized by
     ``model_factory`` in the sequential path's order, draws its dropout
     from the generator its sequential Trainer would use, and its masked
     cross-entropy is summed with the others' before one backward pass, so
     the trajectory is the sequential one's. One optimizer over the stacked
     parameters equals one per member: Adam is elementwise and every
     member steps on every step. The returned Trainers carry their
-    member's parameters, optimizer state and generator, ready to refit."""
+    member's parameters, optimizer state and generator, ready to refit.
+
+    With a ``mesh`` of D ranks the members are padded to ``m_pad = ceil(M /
+    D) * D`` and rank r steps members ``[r * m_pad / D, (r+1) * m_pad / D)``
+    on its device (the block ``P(axis)`` gives a JAX rank), dummies past M
+    with an all-false mask; the operator's hybrid cost model is priced at
+    that block (``hybrid_batch``). Every rank then gathers every member's
+    parameters, optimizer state and generator; rank 0 alone writes
+    ``save_dir``."""
     trainer_kwargs = dict(trainer_kwargs or {})
     if trainer_kwargs.get("optimizer") is None:
         trainer_kwargs["optimizer"] = "adam"  # perlabel_amazon.py:124
+    if mesh is not None:
+        asked = trainer_kwargs.get("device")
+        if asked is not None and torch.device(asked) != mesh.device:
+            raise ValueError(f"device {asked} is not the mesh's {mesh.device}")
+        trainer_kwargs["device"] = mesh.device
     y_child = np.asarray(y_child, np.int64)
     y_parent = np.asarray(y_parent, np.int64)
     members = _member_label_arrays(g, y_child, y_parent, int(y_parent.max()) + 1)
@@ -325,42 +358,58 @@ def _train_per_label_ep(g: TextGraph, y_child, y_parent, model_factory, *, lr: f
     trainers = [Trainer(m, lr=lr, seed=seed, **trainer_kwargs) for m in models]
     lead = trainers[0]
     dev = lead.device
+    world, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+    m_local = -(-len(models) // world)
+    mine = [i for i in range(rank * m_local, (rank + 1) * m_local) if i < len(models)]
+    n_dummy = m_local - len(mine)
     adj = NormAdj.from_graph(
         g, use_pallas=lead.use_pallas, pallas_dtype=lead.pallas_dtype, device=dev,
         hybrid_k=lead.hybrid_k, hybrid_fused=lead.hybrid_fused,
-        hybrid_f32_mode=lead.hybrid_f32_mode, hybrid_batch=len(models),
+        hybrid_f32_mode=lead.hybrid_f32_mode, hybrid_batch=m_local,
         h_hint=models[0].n_hidden, plan_cache=lead.plan_cache)
     feats = NodeFeatures.from_graph(g, device=dev)
     for t in trainers:  # the returned members adopt the operator
         t._adj, t._adj_key, t._feats = adj, (g.edge_src, g.edge_w, g.n_nodes), feats
 
-    params = _stack_members(models, c_list, dev)
+    # this rank's block; a dummy repeats member 0 and trains on no row
+    c_local = [c_list[i] for i in mine] + [c_list[0]] * n_dummy
+    params = _stack_members([models[i] for i in mine] + [models[0]] * n_dummy, c_local, dev,
+                            c_max=max(c_list))
     opt = resolve_optimizer(trainer_kwargs["optimizer"], params, lr)
-    y = torch.as_tensor(np.stack([yn for _, yn, _ in members], 1), dtype=torch.int64,
-                        device=dev)  # [N, M]
-    mask = torch.as_tensor(np.stack([np.asarray(g.train_mask) & nm for _, _, nm in members],
-                                    1), device=dev).float()
-    gens = [t.generator for t in trainers]
-    histories = [[] for _ in models]
+    no_rows = np.zeros(g.n_nodes, bool)
+    y = torch.as_tensor(np.stack([members[i][1] for i in mine]
+                                 + [np.zeros(g.n_nodes, np.int32)] * n_dummy, 1),
+                        dtype=torch.int64, device=dev)  # [N, m_local]
+    mask = torch.as_tensor(np.stack([np.asarray(g.train_mask) & members[i][2] for i in mine]
+                                    + [no_rows] * n_dummy, 1), device=dev).float()
+    gens = [trainers[i].generator for i in mine] + [
+        torch.Generator(device=dev).manual_seed(0) for _ in range(n_dummy)]
+    local_losses = []
     for epoch in range(epochs):
-        losses = ep_train_step(params, opt, models[0], adj, feats, y, mask, gens, c_list)
+        losses = ep_train_step(params, opt, models[0], adj, feats, y, mask, gens, c_local)
         if lead.debug_checks:
             Trainer._check_finite(epoch, [("member losses", losses)] + [
                 (f"stacked gradient {j}", q.grad) for j, q in enumerate(params)] + [
                 (f"stacked parameter {j}", q) for j, q in enumerate(params)])
-        for hist, loss in zip(histories, losses):
-            hist.append({"loss": loss})
+        local_losses.append(losses)
         if verbose > 0 and (epoch + 1) % 50 == 0:
-            print(f"[EP {epoch + 1}] member losses: {losses.cpu().numpy()}")
+            print(f"[EP {epoch + 1}] member losses: {losses[:len(mine)].cpu().numpy()}")
 
-    state = opt.state_dict()["state"]
     roles = _roles(models[0])
     with torch.no_grad():
+        stacked = [_gather_members(mesh, p.detach(), _member_dim(r))
+                   for p, r in zip(params, roles)]
+        state = {j: {k: v if v.dim() == 0 else _gather_members(mesh, v, _member_dim(roles[j]))
+                     for k, v in st.items()}
+                 for j, st in opt.state_dict()["state"].items()}
+        loss_rows = (torch.stack(local_losses) if local_losses
+                     else torch.zeros((0, m_local), device=dev))
+        loss_rows = _gather_members(mesh, loss_rows, 1).cpu()  # [epochs, m_pad]
         for i, t in enumerate(trainers):
             member_state = {}
-            for j, (p, stacked) in enumerate(zip(t.model.parameters(), params)):
+            for j, (p, q) in enumerate(zip(t.model.parameters(), stacked)):
                 # the padded class columns cut off: the member's own shape
-                p.copy_(_member(roles[j], stacked, i)[..., :p.shape[-1]])
+                p.copy_(_member(roles[j], q, i)[..., :p.shape[-1]])
                 member_state[j] = {
                     k: v.clone() if v.dim() == 0
                     else _member(roles[j], v, i)[..., :p.shape[-1]].clone()
@@ -368,13 +417,23 @@ def _train_per_label_ep(g: TextGraph, y_child, y_parent, model_factory, *, lr: f
             sd = t.optimizer.state_dict()
             t.optimizer.load_state_dict({"state": member_state,
                                          "param_groups": sd["param_groups"]})
-    if save_dir is not None:
+    if world > 1:  # each member's dropout stream from the rank that stepped it
+        gen_states = [None] * world
+        torch.distributed.all_gather_object(
+            gen_states, [trainers[i].generator.get_state() for i in mine], group=mesh.group)
+        for r, states in enumerate(gen_states):
+            for i, st in zip(range(r * m_local, len(models)), states):
+                trainers[i].generator.set_state(st)
+    if save_dir is not None and rank == 0:
         for c, t in enumerate(trainers):
             save_checkpoint(os.path.join(save_dir, f"lvl2-cat{c}"), export_params(t.model),
                             meta={"parent": c, "classes": mapping[c]})
         with open(os.path.join(save_dir, "class_mapping.json"), "w") as f:
             json.dump({str(k): v for k, v in mapping.items()}, f)
-    histories = [[{"loss": float(r["loss"])} for r in h] for h in histories]
+    if save_dir is not None and world > 1:  # the files are there when a rank returns
+        torch.distributed.barrier(group=mesh.group)
+    histories = [[{"loss": float(v)} for v in loss_rows[:, i].tolist()]
+                 for i in range(len(models))]
     return {"trainers": trainers, "mapping": mapping, "histories": histories}
 
 

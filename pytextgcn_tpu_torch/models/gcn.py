@@ -142,15 +142,20 @@ class EGCN(GCN):
         draws an ``[M, out_dim]`` mask, so a masked-head run is statistically
         equal to the full-output one, not equal step for step. Under a
         tensor-parallel layout (``self.tp``) the embedding is this rank's
-        columns and the first contraction is summed over the ranks."""
+        columns of every row (``feats`` whole) and the first contraction is
+        summed over the ranks; a row-sharded operator then takes the rank's
+        rows of the sum."""
         rows, tp = row_block(adj), self.tp
         h = torch.selu(feats.matmul(self.embed.w) + self.embed.b)
-        h = dropout(h, self.dropout, train, generator, rows, None if tp is None else tp.cols)
+        if tp is None:
+            h = dropout(h, self.dropout, train, generator, rows)
+        else:
+            h = dropout(h, self.dropout, train, generator, cols=tp.cols)
         for i, layer in enumerate(self.layers):
             a = adj_out if (adj_out is not None and i == len(self.layers) - 1) else adj
             xw = h @ layer.w
             if i == 0 and tp is not None:
-                xw = tp.all_reduce(xw)
+                xw = tp.all_reduce(xw) if rows is None else tp.reduce_rows(xw, adj.rows_per)
             h = spmm(a, xw) + layer.b
             if self.activation is not None:
                 h = self.activation(h)

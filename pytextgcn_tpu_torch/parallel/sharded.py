@@ -143,6 +143,7 @@ class ShardedAdj:
                ``[rows_per, N]`` (replicated x -> local rows) and transpose
                ``[N, rows_per]`` (local gradient rows -> this rank's part of
                the full cotangent), or None for the gather/``index_add_`` path.
+    wire_rows: rows this rank's all_gather has moved in forward passes.
     """
 
     src: torch.Tensor
@@ -157,6 +158,13 @@ class ShardedAdj:
     plan_fwd: Optional[CsrPlan] = None
     plan_bwd: Optional[CsrPlan] = None
     compute_dtype: str = "float32"
+    wire_rows: int = 0
+
+    @property
+    def comm_rows_per_device(self) -> int:
+        """Rows each rank receives per SpMM: the all_gather's other blocks
+        (ring accounting, as ``hybrid_sharded.ring_gather_rows``)."""
+        return (self.mesh.world_size - 1) * self.rows_per
 
 
 def rank_plan(mesh: Mesh, rows, cols, w, n_rows: int, n_cols: int) -> CsrPlan:
@@ -288,6 +296,7 @@ class ShardedSpmmFunction(torch.autograd.Function):
     def forward(ctx, x: torch.Tensor, adj: ShardedAdj) -> torch.Tensor:
         ctx.adj, ctx.x_dtype = adj, x.dtype
         local = sharded_local_rows(adj, x)
+        adj.wire_rows += adj.comm_rows_per_device
         return all_gather_rows(adj.mesh, local)[:adj.n_nodes]
 
     @staticmethod

@@ -17,6 +17,14 @@ and everything else whole. JAX lays this out with GSPMD shardings; here
 each rank's model holds its blocks as its parameters, so its optimizer
 state follows them (each rank's Adam runs over its own tensors).
 
+Beside a graph mesh over the same ranks (the trainer's ``mesh``) the
+embedding still runs over every row: the first contraction's
+``all_reduce`` gives ``[N, hidden]`` on every rank, which 'allgather'
+aggregates as a replicated activation, and from which the halo and the
+sharded hybrid take the rank's rows (:meth:`TensorParallel.reduce_rows`,
+whose backward all-gathers the ranks' row gradients, so each rank's
+blocks get the gradient of every row).
+
 Dropout on the embedding draws the full-width mask and keeps this rank's
 columns (``models/layers.py::dropout``), so every rank seeded alike draws
 the single-device masks. Checkpoints keep the single-device layout:
@@ -34,7 +42,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from .sharded import Mesh, all_reduce_sum
+from .sharded import Mesh, all_gather_rows, all_reduce_sum, local_block
 
 # parameter -> the dimension its blocks cut (JAX: P(None, axis), P(axis),
 # P(axis, None)) and its path in the JAX parameter tree
@@ -66,6 +74,13 @@ class TensorParallel:
         through."""
         return _AllReduce.apply(t, self.mesh)
 
+    def reduce_rows(self, t: torch.Tensor, rows_per: int) -> torch.Tensor:
+        """The ranks' partial products ``[N, H]`` summed, then this rank's
+        ``rows_per`` rows (zero past N) for a row-sharded operator: each
+        rank's rows enter only its own loss terms, so the backward gathers
+        every rank's row gradient to the whole ``[N, H]`` one."""
+        return _ReduceRows.apply(t, self.mesh, rows_per)
+
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
@@ -75,6 +90,17 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         return g, None
+
+
+class _ReduceRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, mesh: Mesh, rows_per: int) -> torch.Tensor:
+        ctx.mesh, ctx.n = mesh, t.shape[0]
+        return local_block(mesh, all_reduce_sum(mesh, t.contiguous().clone()), rows_per)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return all_gather_rows(ctx.mesh, g)[:ctx.n], None, None
 
 
 def tp_param_shardings(model: nn.Module) -> Dict[str, Optional[int]]:

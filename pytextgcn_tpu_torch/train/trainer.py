@@ -38,7 +38,12 @@ row-sharded and zero at non-train rows, so labels and masks stay whole.
 
 With a ``tp_mesh`` (parallel/tensor.py) EGCN's embedding is cut by columns
 over its ranks, one all_reduce a forward pass; each rank's optimizer runs
-over its own blocks, and checkpoints keep the single-device layout.
+over its own blocks, and checkpoints keep the single-device layout. Beside
+a graph ``mesh`` over the same ranks the embedding runs over every row
+(the features stay whole under the halo), the summed first contraction
+feeds the partition as a replicated activation, or its rank's rows under
+the halo, and the halo's sum of gradients over the ranks leaves the cut
+blocks out: each rank's block already has the gradient of every row.
 """
 
 from __future__ import annotations
@@ -117,12 +122,15 @@ class Trainer:
         partition, or the halo exchange with ``halo`` (the sharded hybrid
         with ``hybrid_k`` besides). ``tp_mesh``: a ``parallel.Mesh`` over
         which EGCN's embedding is cut by columns (``make_mesh(axis=
-        "model")``)."""
+        "model")``), alone or beside a ``mesh`` over the same ranks."""
         if masked_head and isinstance(model, JumpingKnowledgeNetwork):
             raise ValueError(JK_NO_MASKED_HEAD)
-        if mesh is not None and tp_mesh is not None:
-            raise ValueError("a tp_mesh together with a graph mesh is not ported yet "
-                             "(ROADMAP.md §1)")
+        if mesh is not None and tp_mesh is not None and (
+                (mesh.world_size, mesh.rank, mesh.device)
+                != (tp_mesh.world_size, tp_mesh.rank, tp_mesh.device)):
+            raise ValueError("a tp_mesh beside a graph mesh spans the same ranks: rank "
+                             f"{tp_mesh.rank} of {tp_mesh.world_size} on {tp_mesh.device} "
+                             f"against {mesh.rank} of {mesh.world_size} on {mesh.device}")
         if mesh is not None:
             if plan_cache is not None:
                 raise ValueError("plan_cache with a mesh: a plan cache holds one device's "
@@ -208,7 +216,9 @@ class Trainer:
                 )
             self._adj_key = key
         self._feats = NodeFeatures.from_graph(g, device=self.device)
-        if self.halo:  # the rank's rows of the first layer's input
+        if self.halo and getattr(self.model, "tp", None) is None:
+            # the rank's rows of the first layer's input (a TP embedding
+            # takes every row)
             _, lo = self._adj.row_block
             self._feats = self._feats.row_block(lo, self._adj.rows_per)
         return self._adj, self._feats
@@ -296,9 +306,14 @@ class Trainer:
         return loss.detach()
 
     def _sum_over_ranks(self, loss: torch.Tensor) -> torch.Tensor:
-        """Halo: sum each parameter's gradient (one flat all_reduce) and the
-        loss over the ranks; returns the summed loss."""
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        """Halo: sum each whole parameter's gradient (one flat all_reduce)
+        and the loss over the ranks; returns the summed loss. A TP rank's
+        cut blocks are left out: their gradients are whole already."""
+        from ..parallel.tensor import tp_param_shardings
+
+        cut = tp_param_shardings(self.model) if self.tp_mesh is not None else {}
+        grads = [p.grad for name, p in self.model.named_parameters()
+                 if p.grad is not None and cut.get(name) is None]
         flat = torch.cat([g.flatten() for g in grads] + [loss.reshape(1)])
         torch.distributed.all_reduce(flat, group=self.mesh.group)
         off = 0

@@ -87,16 +87,18 @@ def test_gcn_normalize_matches_jax():
 
 def test_unported_counting_backends_raise(monkeypatch):
     tokens = np.array([[0, 1, 2, -1]], np.int32)
-    # 'sharded' is not ported; 'device' is (tests/test_torch_windows_device.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        windows.word_word_edges(tokens, 3, 2, backend="sharded")
     ocoo, ow, on = windows.word_word_edges(tokens, 3, 2, backend="oracle")
+    # 'sharded' is ported (tests/test_torch_windows_sharded.py): the oracle's
+    # edges over the devices named
+    scoo, sw, sn = windows.word_word_edges(tokens, 3, 2, backend="sharded", device="cpu")
+    assert sn == on and np.array_equal(scoo, ocoo) and sw.tobytes() == ow.tobytes()
     # 'auto' above the native triangle limit counts on the device: the GPU
     # unless a device is given, never the CPU in its place
     monkeypatch.setenv("PYTEXTGCN_NATIVE_TRI_BYTES", "8")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        windows.word_word_edges(tokens, 3, 2, backend="auto")
+    for backend in ("auto", "sharded"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            windows.word_word_edges(tokens, 3, 2, backend=backend)
     for backend, kw in (("auto", {"device": "cpu"}), ("device", {"device": "cpu"}),
                         ("native", {})):
         coo, w, n_windows = windows.word_word_edges(tokens, 3, 2, backend=backend, **kw)

@@ -180,8 +180,8 @@ def test_benchmark_graph_edges_equal_jax(monkeypatch, corpus):
     jax_bg.main(argv + ["--backends", "native"])
     benchmark_graph.main(argv + ["--device", "cpu"])
     (want,), got = graphs["jax"], graphs["port"]
-    assert len(got) == 2 and want.n_edges > 0
-    for g in got:  # native and device counting
+    assert len(got) == 3 and want.n_edges > 0
+    for g in got:  # native, device and sharded counting
         assert (g.n_vocab, g.n_docs) == (want.n_vocab, want.n_docs)
         for f in ("edge_src", "edge_dst", "edge_w", "y", "test_mask"):
             np.testing.assert_array_equal(np.asarray(getattr(g, f)),
@@ -260,14 +260,19 @@ def test_hyperopt_floating_point_error_is_a_nan_row(monkeypatch, tmp_path):
 def test_benchmark_graph_backends_agree():
     out = benchmark_graph.main(["--device", "cpu", "--n-docs", "300", "--corpus", "zipf",
                                 "--v-draw", "3000", "--plan-bench"])
-    assert [r["backend"] for r in out["backends"]] == ["native", "device"]
+    assert [r["backend"] for r in out["backends"]] == ["native", "device", "sharded"]
     assert out["edges_equal"] and out["backends"][0]["n_edges"] > 0
     assert out["plan"]["cold_s"] > 0 and out["plan"]["warm_s"] > 0
 
 
 def test_benchmark_graph_refuses_sharded():
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        benchmark_graph.main(["--device", "cpu", "--backends", "native", "sharded"])
+    """``--backends sharded`` runs now (the JAX driver's default list has
+    it): the documents over the CPU, the native kernel's edges."""
+    out = benchmark_graph.main(["--device", "cpu", "--n-docs", "300", "--backends", "native",
+                                "sharded"])
+    assert [r["backend"] for r in out["backends"]] == ["native", "sharded"]
+    assert out["edges_equal"] and out["backends"][1]["n_edges"] > 0
+    assert benchmark_graph.BACKENDS == ("native", "device", "sharded")
 
 
 def _protocol(tmp_path, *extra):

@@ -173,7 +173,7 @@ def test_unrouted_documents_score_as_wrong(corpus):
     m = eval_per_label(g, child, parent, ens["trainers"], ens["mapping"],
                        parent_pred=routed_nowhere, route="predicted")
     assert (m["predictions"] == -1).all() and m["accuracy"] == 0.0 and m["f1_macro"] == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="parallel.Mesh"):  # neither a Mesh nor a count
         train_per_label(g, child, parent, f.port, mesh=object())
     with pytest.raises(ValueError, match="parent_pred"):
         eval_per_label(g, child, parent, ens["trainers"], ens["mapping"], route="predicted")

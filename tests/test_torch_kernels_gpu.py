@@ -873,3 +873,68 @@ def test_kernel_on_per_shard_plans(cuda, d, h, dtype, empty):
                               spmm_cuda.spmm_csr_abs(csr, x32), rtol=2.0**-8)
             if csr.n_edges == 0:
                 assert not got.any()
+
+
+# ---- the last multi-device paths: a DP rank's MLP plans, an EP rank's width
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_kernel_on_a_dp_rank_s_mlp_plans(cuda, d):
+    """A data-parallel MLP rank's block of an Amazon-size train matrix
+    ([36,001, 41,600], 35 nonzeros a row: the last block padded): its
+    ``[b, 41,600]`` plan and the ``[41,600, b]`` transpose at H = 256, the
+    padded rows exact zeros."""
+    from pytextgcn_tpu_torch.baselines.mlp_pipeline import row_block
+    from pytextgcn_tpu_torch.parallel import Mesh
+
+    rng = np.random.default_rng(d)
+    n, v = 36_001, 41_600
+    m = _tfidf_like(rng, n, v, nnz_per_row=35)
+    y = rng.integers(0, 10, n)
+    b = -(-n // d)
+    for r in (0, d - 1):
+        blk = row_block(Mesh(None, r, d, cuda), m, y)
+        fwd, bwd = blk.xs.plan.fwd, blk.xs.plan.bwd
+        assert (fwd.n_rows, fwd.n_cols, bwd.n_rows, bwd.n_cols) == (b, v, v, b)
+        n_real = min(b, n - r * b)
+        assert int(blk.mask.sum()) == n_real and not blk.mask[n_real:].any()
+        for csr in (fwd, bwd):
+            x = torch.randn(csr.n_cols, 256, device=cuda)
+            got = spmm_cuda.spmm_csr_kernel(csr, x)
+            torch.cuda.synchronize()
+            _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x),
+                          spmm_cuda.spmm_csr_abs(csr, x))
+            if csr is fwd:
+                assert not got[n_real:].any()
+
+
+@pytest.mark.parametrize("members", [3, 2], ids=["2ranks", "4ranks"])
+def test_kernel_at_an_ep_rank_s_width(cuda, members):
+    """The ensemble's operator at one rank's widths: its block of the six
+    members of hidden 100 (3 on 2 ranks, 2 on 4) and of their 6 classes."""
+    g = _restricted_graph(seed=members)
+    adj = NormAdj.from_graph(g, use_pallas=True, device=cuda)
+    for h in (members * 100, members * 6):
+        x = torch.randn(g.n_nodes, h, device=cuda)
+        for csr in (adj.plan.fwd, adj.plan.bwd):
+            got = spmm_cuda.spmm_csr_kernel(csr, x)
+            torch.cuda.synchronize()
+            _assert_close(got, spmm_cuda.spmm_csr_reference(csr, x),
+                          spmm_cuda.spmm_csr_abs(csr, x))
+
+
+def test_dp_mlp_step_on_card_matches_cpu(cuda):
+    """``train_mlp`` over a mesh of one rank at dropout 0 (the
+    data-parallel step: the loss sum, the count and the gradients reduced
+    and divided): the card's kernel path against the CPU's plain version."""
+    from pytextgcn_tpu_torch.baselines import train_mlp
+    from pytextgcn_tpu_torch.parallel import Mesh
+
+    rng = np.random.default_rng(7)
+    x_tr, x_va = _tfidf_like(rng, 800, 3000, 20), _tfidf_like(rng, 200, 3000, 20)
+    y_tr, y_va = rng.integers(0, 5, 800), rng.integers(0, 5, 200)
+    runs = [train_mlp(x_tr, y_tr, x_va, y_va, 5, dropout=0.0, epochs=12, early_stopping=False,
+                      mesh=Mesh(None, 0, 1, torch.device(dev))) for dev in ("cpu", cuda)]
+    (mc, hc), (mg, hg) = runs
+    np.testing.assert_allclose([l for l, _ in hg], [l for l, _ in hc], rtol=1e-5)
+    for a, b in zip(mg.parameters(), mc.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=1e-5)

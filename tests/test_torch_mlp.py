@@ -297,10 +297,22 @@ def test_hierarchies_route_by_predicted_labels_as_jax(splits, shared_inits, hier
 
 
 def test_mesh_is_refused_with_a_pointer_to_the_roadmap(splits):
+    """``mesh=`` runs the data-parallel step now (its ranks:
+    tests/test_torch_multihost.py): a mesh of one rank gives the
+    single-process history; what is not a ``parallel.Mesh`` is refused."""
+    from pytextgcn_tpu_torch.parallel import Mesh
+
     ours, _ = splits
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipeline.train_mlp(ours.x_train, ours.y_train[0], ours.x_val, ours.y_val[0], 3,
-                           epochs=1, device=CPU, mesh=object())
+    args = (ours.x_train, ours.y_train[0], ours.x_val, ours.y_val[0], 3)
+    kw = dict(hidden=(16,), epochs=6, dropout=0.5, early_stopping=False)
+    one_rank = Mesh(None, 0, 1, torch.device(CPU))
+    _, hist = pipeline.train_mlp(*args, device=CPU, **kw)
+    _, hist_dp = pipeline.train_mlp(*args, mesh=one_rank, **kw)
+    np.testing.assert_allclose(hist_dp, hist, rtol=1e-5, atol=1e-6)
+    with pytest.raises(TypeError, match="parallel.Mesh"):
+        pipeline.train_mlp(*args, epochs=1, device=CPU, mesh=object())
+    with pytest.raises(ValueError, match="is not the mesh's"):
+        pipeline.train_mlp(*args, epochs=1, device="cuda", mesh=one_rank)
 
 
 # ------------------------------------------------------------------ driver

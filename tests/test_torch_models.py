@@ -299,12 +299,9 @@ def test_share_adjacency_only_with_equal_aggregation():
 
 @pytest.mark.parametrize("flag", [
     ["--train-sharding", "hybrid", "--train-hybrid-f32-mode", "split2"],
-    ["--train-ep", "true", "--train-n-devices", "2"],
     ["--train-batch-size", "1", "--train-hybrid-k", "128"],
     ["--train-sharding", "halo", "--train-n-devices", "2", "--train-plan-cache", "plans"],
     ["--train-sharding", "allgather", "--train-n-devices", "2", "--train-hybrid-k", "128"],
-    ["--graph-backend", "sharded"],
-    ["--train-ep", "true", "--train-n-devices", "4"],
 ])
 def test_check_ported_still_refuses(flag):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
@@ -322,7 +319,11 @@ def test_check_ported_still_refuses(flag):
                                   ["--graph-backend", "device"],
                                   ["--train-sharding", "hybrid", "--train-n-devices", "2"],
                                   ["--train-sharding", "halo", "--train-n-devices", "2",
-                                   "--train-masked-head", "true"]])
+                                   "--train-masked-head", "true"],
+                                  # ROADMAP.md §1 item 4c, ported
+                                  ["--train-ep", "true", "--train-n-devices", "2"],
+                                  ["--graph-backend", "sharded"],
+                                  ["--train-ep", "true", "--train-n-devices", "4"]])
 def test_check_ported_accepts_egcn_jk_and_save_model(flag):
     check_ported(parse_config(flag))
 

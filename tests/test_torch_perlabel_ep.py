@@ -168,7 +168,9 @@ def test_a_one_device_mesh_takes_the_batched_step(ragged_corpus):
     out = train_per_label(g, child, parent, _factory(), epochs=2, seed=3, mesh=1,
                           trainer_kwargs=CPU)
     assert len(out["trainers"]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # more devices than one: the ranks of a parallel.Mesh, one process each
+    # (tests/test_torch_multihost.py), not a count in this process
+    with pytest.raises(ValueError, match="parallel.Mesh"):
         train_per_label(g, child, parent, _factory(), epochs=2, seed=3, mesh=2,
                         trainer_kwargs=CPU)
 

@@ -77,16 +77,32 @@ def test_flat_experiment_writes_results_row(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--graph-backend", "sharded"],
     ["--train-sharding", "hybrid", "--train-n-devices", "2", "--train-plan-cache", "plans"],
     ["--train-sharding", "halo", "--train-hybrid-k", "128", "--train-n-devices", "2"],
-    ["--train-ep", "true", "--train-n-devices", "2"],
     ["--train-sharding", "allgather", "--train-n-devices", "2", "--train-batch-size", "8"],
     ["--train-batch-size", "8", "--train-masked-head", "true"],
 ])
 def test_flat_experiment_refuses_unported_settings(flag):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         flat.main(["--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", [["--graph-backend", "sharded"],
+                                  ["--train-ep", "true", "--train-n-devices", "2"]],
+                         ids=["sharded-counting", "ep-over-ranks"])
+def test_flat_experiment_takes_what_item_4c_refused(flag, tmp_path):
+    """The flat experiment runs with what ROADMAP.md §1 item 4c refused:
+    sharded counting gives the native build's row; the ensemble's flags
+    belong to the per-label driver, so the flat run starts no ranks and
+    writes the row it writes without them."""
+    rows = []
+    for extra in ([], flag):
+        path = tmp_path / f"{len(rows)}.csv"
+        res = flat.main(["--device", "cpu", "--train-epochs", "3", "--train-verbose", "0",
+                         "--result-file", str(path), *extra])
+        assert res is not None  # this process ran it
+        rows.append(path.read_text().strip().splitlines())
+    assert rows[0] == rows[1]
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):

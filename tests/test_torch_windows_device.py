@@ -123,8 +123,9 @@ def test_native_failure_is_not_hidden(monkeypatch):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        windows.word_word_edges(GOLDEN_X, 6, 3, backend="sharded")
+    # 'sharded' no longer raises: the device backend's edges over the CPU
+    _assert_same(windows.word_word_edges(GOLDEN_X, 6, 3, backend="sharded", device="cpu"),
+                 windows.word_word_edges_device(GOLDEN_X, 6, 3, device="cpu"))
     with pytest.raises(ValueError, match=r"\[0, 5\)"):
         windows.word_word_edges_device(GOLDEN_X, 5, 3, device="cpu")
     empty = windows.word_word_edges_device(np.zeros((0, 4), np.int32), 6, 3, device="cpu")
