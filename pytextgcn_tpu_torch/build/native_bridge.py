@@ -151,9 +151,15 @@ def load_native() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
+        # imported here: a process that loads this module alone from its file
+        # (tests/torch_sanitized_worker.py) sets _LIB itself and never gets here
+        from ..train.profiling import stage
+
         if _stale(_SO):
-            _build()
-        _LIB = declare_api(ctypes.CDLL(_SO))
+            with stage("kernels.build"):
+                _build()
+        with stage("kernels.load"):
+            _LIB = declare_api(ctypes.CDLL(_SO))
         return _LIB
 
 

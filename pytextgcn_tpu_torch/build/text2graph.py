@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from ..core.graph import TextGraph
+from ..train.profiling import stage
 from .stopwords import get_stopwords
 from .vectorizer import CountVectorizer, TfidfTransform
 from .windows import word_word_edges
@@ -105,75 +106,80 @@ class Text2Graph:
         else:
             docs = list(X)
 
-        stop = get_stopwords("nltk") if self.rm_stopwords else None
-        self.cv = CountVectorizer(min_df=self.min_df, max_df=self.max_df, stop_words=stop)
-        counts = self.cv.fit_transform(docs)
+        with stage("graph.vocabulary"):
+            stop = get_stopwords("nltk") if self.rm_stopwords else None
+            self.cv = CountVectorizer(min_df=self.min_df, max_df=self.max_df, stop_words=stop)
+            counts = self.cv.fit_transform(docs)
         self.counts_ = counts
         n_docs, n_vocab = counts.shape
         self.n_docs_, self.n_vocabs_ = n_docs, n_vocab
         self._log(2, f"Number of documents in input: {n_docs}")
         self._log(2, f"Vocabulary size: {n_vocab}")
 
-        tokens = self.cv.encode_documents(docs, self.max_length)
+        with stage("graph.encode"):
+            tokens = self.cv.encode_documents(docs, self.max_length)
         self._log(1, "Building doc-word edges...")
-        self.tfidf_ = TfidfTransform()
-        tfidf = self.tfidf_.fit_transform(counts).tocoo()
-        self.tfidf_mat_ = tfidf.tocsr()
-        # th.nonzero order is row-major (text2graph.py:148); scipy coo from
-        # csr is also row-major sorted.
-        dw_doc = tfidf.row.astype(np.int32)
-        dw_word = tfidf.col.astype(np.int32)
-        dw_w = tfidf.data.astype(np.float32)
+        with stage("graph.tfidf"):
+            self.tfidf_ = TfidfTransform()
+            tfidf = self.tfidf_.fit_transform(counts).tocoo()
+            self.tfidf_mat_ = tfidf.tocsr()
+            # th.nonzero order is row-major (text2graph.py:148); scipy coo from
+            # csr is also row-major sorted.
+            dw_doc = tfidf.row.astype(np.int32)
+            dw_word = tfidf.col.astype(np.int32)
+            dw_w = tfidf.data.astype(np.float32)
 
         self._log(1, "Building word-word edges...")
-        ww_coo, ww_w, n_windows = word_word_edges(
-            tokens, n_vocab, self.window_size, backend=self.backend,
-            n_jobs=self.n_jobs or 0,  # None -> 0 = hardware concurrency
-            device=self.device,
-        )
+        with stage("graph.word_edges"):
+            ww_coo, ww_w, n_windows = word_word_edges(
+                tokens, n_vocab, self.window_size, backend=self.backend,
+                n_jobs=self.n_jobs or 0,  # None -> 0 = hardware concurrency
+                device=self.device,
+            )
         self._log(2, f"Number of word-word-edges: {len(ww_w)} ({n_windows} windows)")
 
-        # assemble: [word-word, doc->word, word->doc] exactly like
-        # text2graph.py:162-171 (docs offset by n_vocab).
-        src = np.concatenate([ww_coo[:, 0], dw_doc + n_vocab, dw_word])
-        dst = np.concatenate([ww_coo[:, 1], dw_word, dw_doc + n_vocab])
-        w = np.concatenate([ww_w, dw_w, dw_w]).astype(np.float32)
+        with stage("graph.assemble"):
+            # assemble: [word-word, doc->word, word->doc] exactly like
+            # text2graph.py:162-171 (docs offset by n_vocab).
+            src = np.concatenate([ww_coo[:, 0], dw_doc + n_vocab, dw_word])
+            dst = np.concatenate([ww_coo[:, 1], dw_word, dw_doc + n_vocab])
+            w = np.concatenate([ww_w, dw_w, dw_w]).astype(np.float32)
 
-        n_nodes = n_docs + n_vocab
-        test_mask = np.zeros(n_nodes, dtype=bool)
-        val_mask = np.zeros(n_nodes, dtype=bool)
-        if test_idx is not None:
-            test_mask[np.asarray(test_idx, dtype=np.int64) + n_vocab] = True
-        if val_idx is not None:
-            val_mask[np.asarray(val_idx, dtype=np.int64) + n_vocab] = True
-        train_mask = ~(test_mask | val_mask)
-        train_mask[:n_vocab] = False
-        y_nodes = np.zeros(n_nodes, dtype=np.int32)
-        if y is not None:
-            y_nodes[n_vocab:] = np.asarray(y, dtype=np.int32)
+            n_nodes = n_docs + n_vocab
+            test_mask = np.zeros(n_nodes, dtype=bool)
+            val_mask = np.zeros(n_nodes, dtype=bool)
+            if test_idx is not None:
+                test_mask[np.asarray(test_idx, dtype=np.int64) + n_vocab] = True
+            if val_idx is not None:
+                val_mask[np.asarray(val_idx, dtype=np.int64) + n_vocab] = True
+            train_mask = ~(test_mask | val_mask)
+            train_mask[:n_vocab] = False
+            y_nodes = np.zeros(n_nodes, dtype=np.int32)
+            if y is not None:
+                y_nodes[n_vocab:] = np.asarray(y, dtype=np.int32)
 
-        hf = None
-        if hierarchy_feats is not None:
-            hf = np.asarray(hierarchy_feats, dtype=np.float32)
-            if hf.shape[0] != n_docs:
-                raise ValueError("hierarchy_feats must be [n_docs, F]")
+            hf = None
+            if hierarchy_feats is not None:
+                hf = np.asarray(hierarchy_feats, dtype=np.float32)
+                if hf.shape[0] != n_docs:
+                    raise ValueError("hierarchy_feats must be [n_docs, F]")
 
-        g = TextGraph(
-            edge_src=src.astype(np.int32),
-            edge_dst=dst.astype(np.int32),
-            edge_w=w,
-            y=y_nodes,
-            train_mask=train_mask,
-            val_mask=val_mask,
-            test_mask=test_mask,
-            n_vocab=int(n_vocab),
-            n_docs=int(n_docs),
-            hierarchy_feats=hf,
-            # PMI edges are emitted in both directions with equal weight
-            # and doc<->word edges carry the same TF-IDF both ways
-            # (text2graph.py:162-171) — construction-guaranteed symmetry
-            weight_symmetric=True,
-        )
+            g = TextGraph(
+                edge_src=src.astype(np.int32),
+                edge_dst=dst.astype(np.int32),
+                edge_w=w,
+                y=y_nodes,
+                train_mask=train_mask,
+                val_mask=val_mask,
+                test_mask=test_mask,
+                n_vocab=int(n_vocab),
+                n_docs=int(n_docs),
+                hierarchy_feats=hf,
+                # PMI edges are emitted in both directions with equal weight
+                # and doc<->word edges carry the same TF-IDF both ways
+                # (text2graph.py:162-171) — construction-guaranteed symmetry
+                weight_symmetric=True,
+            )
         self._log(1, f"total edge count is {g.n_edges} (built in {time.time() - t0:.2f}s)")
 
         if self.save_path is not None:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core.graph import TextGraph, gcn_normalize_np
+from ..train.profiling import stage
 from ..utils import resolve_device
 from .hybrid import HybridPlan, build_hybrid_plan
 from .plan_cache import load_or_build
@@ -69,7 +70,8 @@ class NormAdj:
         device = resolve_device(device)
         src = np.asarray(g.edge_src)
         dst = np.asarray(g.edge_dst)
-        norm_w, self_w = gcn_normalize_np(src, dst, g.edge_w, g.n_nodes)
+        with stage("operator.normalize"):
+            norm_w, self_w = gcn_normalize_np(src, dst, g.edge_w, g.n_nodes)
         if hybrid_k == 0:
             hybrid_k = None
 
@@ -96,12 +98,15 @@ class NormAdj:
             params.update(hybrid_k=hybrid_k, hybrid_fused=hybrid_fused,
                           hybrid_f32_mode=hybrid_f32_mode, hybrid_resid=hybrid_resid,
                           hybrid_batch=hybrid_batch, h_hint=h_hint)
-        plan = load_or_build(plan_cache, g, src, dst, norm_w, device, build, **params)
-        return NormAdj(
-            src=torch.as_tensor(src.astype(np.int64), device=device),
-            dst=torch.as_tensor(dst.astype(np.int64), device=device),
-            w=torch.as_tensor(norm_w, device=device),
-            self_w=torch.as_tensor(self_w, device=device),
-            n_nodes=g.n_nodes,
-            plan=plan,
-        )
+        # the plan, built (copies to the device included) or loaded
+        with stage("operator.csr_plan"):
+            plan = load_or_build(plan_cache, g, src, dst, norm_w, device, build, **params)
+        with stage("operator.upload"):
+            return NormAdj(
+                src=torch.as_tensor(src.astype(np.int64), device=device),
+                dst=torch.as_tensor(dst.astype(np.int64), device=device),
+                w=torch.as_tensor(norm_w, device=device),
+                self_w=torch.as_tensor(self_w, device=device),
+                n_nodes=g.n_nodes,
+                plan=plan,
+            )

@@ -15,6 +15,7 @@ import tempfile
 import threading
 from typing import Dict, Optional, Sequence
 
+from ..train.profiling import stage
 from ..utils import BUILD_DIR
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
@@ -68,7 +69,8 @@ class CudaLibrary:
             if verbose:
                 cmd[1:1] = ["-Xptxas", "-v"]
             try:
-                res = subprocess.run(cmd, capture_output=True, text=True)
+                with stage("kernels.build"):
+                    res = subprocess.run(cmd, capture_output=True, text=True)
                 if res.returncode != 0:
                     raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
                 os.replace(tmp, self.so)
@@ -83,7 +85,8 @@ class CudaLibrary:
         symbol = symbol or self.symbol
         if symbol not in self._fns:
             self.build()
-            fn = getattr(ctypes.CDLL(self.so), symbol)
+            with stage("kernels.load"):
+                fn = getattr(ctypes.CDLL(self.so), symbol)
             fn.argtypes = self.argtypes[symbol]
             fn.restype = ctypes.c_int
             self._fns[symbol] = fn

@@ -30,6 +30,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..train.profiling import span
 from .cuda_lib import CudaLibrary
 
 # Longest run of edges one warp reduces; longer rows are cut into segments
@@ -263,7 +264,8 @@ class SpmmCsrKernel:
     ``(n_rows, n_cols, H)`` of the launch, in ``shapes`` (full square plans,
     the masked head's rectangular ones, the batched ensemble's widths).
     ``flags`` and ``tag`` make a timing build (``-D`` macros of
-    ``csrc/spmm_csr.cu``), never used for a result."""
+    ``csrc/spmm_csr.cu``), never used for a result. Each call is the span
+    ``spmm.launch`` while a profiler runs."""
 
     def __init__(self, flags=(), tag: str = ""):
         self.launches = 0
@@ -278,37 +280,38 @@ class SpmmCsrKernel:
         return self.lib.build(verbose)
 
     def __call__(self, csr: CsrPlan, x: torch.Tensor) -> torch.Tensor:
-        if not x.is_cuda:
-            raise ValueError("the CUDA SpMM kernel takes CUDA tensors only")
-        if csr.device != x.device:
-            raise ValueError(f"plan on {csr.device}, x on {x.device}")
-        if x.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-        if x.dim() != 2 or x.shape[0] != csr.n_cols:
-            raise ValueError(f"x must be [{csr.n_cols}, H], got {list(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError("x must be contiguous")
-        h = int(x.shape[1])
-        ld = -(-h // 4) * 4  # the kernel reads 4 columns a lane
-        if -(-ld // 128) > 65535:  # one grid.y block per 128 columns
-            raise ValueError(f"H={h} is too wide for the kernel's grid")
-        if ld != h:  # rows of 16 (f32) or 8 (bf16) bytes
-            x = torch.nn.functional.pad(x, (0, ld - h))
-        elif x.data_ptr() % (4 * x.element_size()):
-            x = x.clone()
-        out = torch.empty(csr.n_rows, h, dtype=torch.float32, device=x.device)
-        partial = torch.empty(csr.n_partials, ld, dtype=torch.float32, device=x.device)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            self.lib.launch(
-                "spmm_csr",
-                csr.seg_ptr.data_ptr(), csr.seg_row.data_ptr(), csr.seg_slot.data_ptr(),
-                int(csr.seg_row.shape[0]), csr.pairs.data_ptr(), x.data_ptr(),
-                0 if x.dtype == torch.float32 else 1, h, ld,
-                out.data_ptr(), partial.data_ptr() if csr.n_partials else None,
-                csr.split_row.data_ptr(), csr.split_ptr.data_ptr(),
-                int(csr.split_row.shape[0]), stream,
-            )
+        with span("spmm.launch"):  # the host's cost of one launch, to its return
+            if not x.is_cuda:
+                raise ValueError("the CUDA SpMM kernel takes CUDA tensors only")
+            if csr.device != x.device:
+                raise ValueError(f"plan on {csr.device}, x on {x.device}")
+            if x.dtype not in (torch.float32, torch.bfloat16):
+                raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+            if x.dim() != 2 or x.shape[0] != csr.n_cols:
+                raise ValueError(f"x must be [{csr.n_cols}, H], got {list(x.shape)}")
+            if not x.is_contiguous():
+                raise ValueError("x must be contiguous")
+            h = int(x.shape[1])
+            ld = -(-h // 4) * 4  # the kernel reads 4 columns a lane
+            if -(-ld // 128) > 65535:  # one grid.y block per 128 columns
+                raise ValueError(f"H={h} is too wide for the kernel's grid")
+            if ld != h:  # rows of 16 (f32) or 8 (bf16) bytes
+                x = torch.nn.functional.pad(x, (0, ld - h))
+            elif x.data_ptr() % (4 * x.element_size()):
+                x = x.clone()
+            out = torch.empty(csr.n_rows, h, dtype=torch.float32, device=x.device)
+            partial = torch.empty(csr.n_partials, ld, dtype=torch.float32, device=x.device)
+            with torch.cuda.device(x.device):
+                stream = torch.cuda.current_stream(x.device).cuda_stream
+                self.lib.launch(
+                    "spmm_csr",
+                    csr.seg_ptr.data_ptr(), csr.seg_row.data_ptr(), csr.seg_slot.data_ptr(),
+                    int(csr.seg_row.shape[0]), csr.pairs.data_ptr(), x.data_ptr(),
+                    0 if x.dtype == torch.float32 else 1, h, ld,
+                    out.data_ptr(), partial.data_ptr() if csr.n_partials else None,
+                    csr.split_row.data_ptr(), csr.split_ptr.data_ptr(),
+                    int(csr.split_row.shape[0]), stream,
+                )
         self.launches += 1
         shape = (csr.n_rows, csr.n_cols, h)
         self.shapes[shape] = self.shapes.get(shape, 0) + 1

@@ -1,30 +1,42 @@
-"""Tracing and profiling utilities.
+"""Tracing and profiling: the program's spans and stages, and a
+``torch.profiler`` helper.
 
-Port of ``pytextgcn_tpu/train/profiling.py``:
-
-* ``StageTimer``: named phase timers (graph build, train, eval) that emit
-  JSONL records;
+* ``span(name, **args)``: a range on the hot path. While a ``torch.profiler``
+  runs it is ``torch.profiler.record_function(name)``, so the range lands in
+  the profiler's chrome trace (category ``user_annotation``) on the same clock
+  as the device's kernel, copy and set events. Otherwise it is one shared
+  null context, after a single read of the profiler's enabled flag: no
+  dispatcher or profiler call. Spans are on exactly when a profiler is.
+* ``stage(name)``: a coarse span for set-up work (graph build, operator
+  build, kernel builds and loads, each ``Trainer.fit`` call). It keeps a
+  record of name, start, end and enclosing stage on the ``time.perf_counter``
+  clock, since no profiler runs during set-up, and emits the same range as
+  ``span`` when one does. ``stages()`` returns the records; the record keeps
+  the newest ``MAX_STAGES``.
 * ``trace``: a context manager around ``torch.profiler`` (CPU and, when the
   card is present, CUDA activity) that writes a chrome trace;
-  ``device_busy_us`` reads the device's busy time from such a trace;
-* ``spmm_roofline``: bytes moved, edges a second and the fraction of the
-  HBM speed of light for one SpMM application, with the JAX package's
-  memory model.
+  ``device_busy_us`` reads the device's busy time from such a trace.
 
-The default peaks are the H100 SXM data sheet's (``H100_PEAK``, dense
-rates, no sparsity; the port's one table of them), never a TPU's. A
-``peak`` dict given to ``spmm_roofline`` may add ``hbm_gbps_measured``, a
-probe's streaming rate (``ops/probe.py``).
+``H100_PEAK`` holds the H100 SXM data sheet's peaks (dense rates, no
+sparsity; the port's one table of them), never a TPU's.
+
+Where each span and stage is opened, and which benchmark metric reads it,
+is listed in PERF.md.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import json
 import os
+import threading
 import time
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Deque, List, Optional
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # H100 SXM data-sheet peaks: HBM3 bandwidth, f32 outside the tensor cores,
 # dense bf16 and TF32 on the tensor cores
@@ -35,31 +47,66 @@ H100_PEAK = {
     "bf16_tflops": 989.0,
 }
 
+# Stage records kept: stages open a few times a process (a Trainer.fit call
+# is one), never per epoch; a hyperparameter search fitting thousands of
+# models keeps the newest.
+MAX_STAGES = 1024
 
-@dataclass
-class StageTimer:
-    """Accumulates named stage timings; optionally mirrors to a JSONL file."""
+_NULL = contextlib.nullcontext()
 
-    path: Optional[str] = None
-    records: List[Dict] = field(default_factory=list)
 
-    @contextlib.contextmanager
-    def stage(self, name: str, **meta):
-        t0 = time.time()
-        try:
+def span(name: str, **args):
+    """A context manager: ``record_function(name)`` while a profiler runs,
+    with ``args`` as its argument string (``k=v`` pairs); else a shared null
+    context, chosen by one read of torch's own enabled flag
+    (``torch.autograd.profiler._is_profiler_enabled``, which torch's fast
+    paths read too)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return torch.profiler.record_function(
+        name, ",".join(f"{k}={v}" for k, v in args.items()) if args else None)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """One stage: ``start`` and ``end`` on ``time.perf_counter``;
+    ``parent`` names the stage open around it on the same thread."""
+
+    name: str
+    start: float
+    end: float
+    parent: Optional[str] = None
+
+    @property
+    def seconds(self) -> float:
+        return self.end - self.start
+
+
+_STAGES: Deque[Stage] = collections.deque(maxlen=MAX_STAGES)
+_OPEN = threading.local()  # .names: the stages open on this thread, innermost last
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    """Record the block as stage ``name`` (also if it raises), and open
+    ``span(name)`` around it."""
+    names = getattr(_OPEN, "names", None)
+    if names is None:
+        names = _OPEN.names = []
+    parent = names[-1] if names else None
+    names.append(name)
+    start = time.perf_counter()
+    try:
+        with span(name):
             yield
-        finally:
-            rec = {"stage": name, "seconds": time.time() - t0, **meta, "ts": t0}
-            self.records.append(rec)
-            if self.path:
-                with open(self.path, "a") as f:
-                    f.write(json.dumps(rec) + "\n")
+    finally:
+        _STAGES.append(Stage(name, start, time.perf_counter(), parent))
+        names.pop()
 
-    def summary(self) -> Dict[str, float]:
-        out: Dict[str, float] = {}
-        for r in self.records:
-            out[r["stage"]] = out.get(r["stage"], 0.0) + r["seconds"]
-        return out
+
+def stages() -> List[Stage]:
+    """The stage records, oldest first (closing order)."""
+    return list(_STAGES)
 
 
 @contextlib.contextmanager
@@ -68,7 +115,6 @@ def trace(logdir: str, name: str = "trace"):
     activity when a card is present) and write its chrome trace to
     ``<logdir>/<name>.json``. Yields the profiler; its ``trace_path``
     attribute names the file once the block has ended."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)
@@ -95,34 +141,3 @@ def device_busy_us(trace_path: str) -> float:
             busy += t - max(s, end)
             end = t
     return busy
-
-
-def spmm_roofline(
-    n_edges: int,
-    n_nodes: int,
-    feat_dim: int,
-    seconds: float,
-    peak: Optional[Dict[str, float]] = None,
-) -> Dict[str, float]:
-    """Roofline accounting for one SpMM application.
-
-    Memory model (the op is bandwidth-bound): each edge reads its (src, w)
-    pair plus a feat_dim row of X, and each output row is written once.
-    Returns achieved GB/s, effective edges/s, and fraction of the HBM
-    speed of light (``peak``: default ``H100_PEAK``).
-    """
-    peak = peak or H100_PEAK
-    bytes_edges = n_edges * (4 + 4)  # src id + weight
-    bytes_gather = n_edges * feat_dim * 4  # gathered X rows (uncached model)
-    bytes_out = n_nodes * feat_dim * 4
-    total_bytes = bytes_edges + bytes_gather + bytes_out
-    gbps = total_bytes / seconds / 1e9
-    out = {
-        "edges_per_s": n_edges / seconds,
-        "achieved_gbps": gbps,
-        "fraction_of_roofline": gbps / peak["hbm_gbps"],
-        "total_bytes": float(total_bytes),
-    }
-    if "hbm_gbps_measured" in peak:
-        out["fraction_of_measured_roofline"] = gbps / peak["hbm_gbps_measured"]
-    return out

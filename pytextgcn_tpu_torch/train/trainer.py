@@ -44,6 +44,12 @@ a graph ``mesh`` over the same ranks the embedding runs over every row
 feeds the partition as a replicated activation, or its rank's rows under
 the halo, and the halo's sum of gradients over the ranks leaves the cut
 blocks out: each rank's block already has the gradient of every row.
+
+While a ``torch.profiler`` runs, ``fit`` and ``fit_minibatch`` mark their
+phases with spans (``train/profiling.py``): ``fit.epoch`` around each epoch,
+and inside it ``fit.train_step`` and ``fit.eval`` (the enqueue), one
+``fit.host_read`` a number read back from the device, and ``fit.log``. Each
+``fit`` call is the stage ``trainer.fit``.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from ..utils import resolve_device
 from .checkpoint import load_checkpoint, load_meta, save_checkpoint
 from .metrics import accuracy, global_count, macro_f1, masked_cross_entropy
 from .optim import resolve_optimizer
+from .profiling import span, stage
 
 
 def dropout_seed(seed: int) -> int:
@@ -352,6 +359,7 @@ class Trainer:
 
     # ------------------------------------------------------------------ api
 
+    @stage("trainer.fit")
     def fit(
         self,
         g: TextGraph,
@@ -406,49 +414,64 @@ class Trainer:
         width = len(str(epochs))
         t0 = time.time()
         for epoch in range(start_epoch, epochs):
-            loss = self._train_step(adj, feats, y_step, mask_step, adj_out, epoch, denom)
-            # reading the loss synchronizes with the device: only where the
-            # reference rule needs every epoch's loss, or at eval points
-            is_eval = (epoch + 1) % eval_every == 0 or epoch == epochs - 1
-            rec = {"loss": loss.item() if (early_stopping == "reference" or is_eval)
-                   else loss}
-            if is_eval:
-                m = self._eval_step(adj, feats, y, train_mask, val_mask, n_classes, val_denom)
-                rec.update({k: float(v) for k, v in m.items()})
-                if verbose > 0:
-                    log_fn(
-                        f"[{epoch + 1:{width}}] loss: {rec['loss']: .3f}, "
-                        f"training accuracy: {rec['train_acc']: .3f}, "
-                        f"val_f1: {rec['val_f1']: .3f}"
-                    )
-                if early_stopping == "val_f1":
-                    # the reference MLP rule (MLP_flat.py:95-100): stop when
-                    # each of the last `patience` F1s is <= the F1 from
-                    # patience+1 evals ago (no best-params restore)
-                    f1_hist.append(rec["val_f1"])
-                    if epoch > min_epochs and len(f1_hist) > patience:
-                        dec = sum(
-                            f1_hist[-(i + 1)] <= f1_hist[-(patience + 1)]
-                            for i in range(patience)
-                        )
-                        if dec >= patience:
-                            if verbose > 0:
-                                log_fn(f"Early stopping! Validation f1 decreased "
-                                       f"for {dec} epochs!")
-                            history.append(rec)
-                            break
-            history.append(rec)
-            if (
-                early_stopping == "reference"
-                and epoch > 5
-                and len(history) >= 5
-                and history[-5]["loss"] < history[-1]["loss"]
-            ):
-                if verbose > 0:
-                    log_fn("early stopping activated!")
-                break
+            with span("fit.epoch", epoch=epoch + 1):
+                # the host reads are spans of their own, beside the step's and
+                # the evaluation's: those hold the enqueue, the reads the waits
+                with span("fit.train_step"):
+                    loss = self._train_step(adj, feats, y_step, mask_step, adj_out, epoch,
+                                            denom)
+                # reading the loss synchronizes with the device: only where the
+                # reference rule needs every epoch's loss, or at eval points
+                is_eval = (epoch + 1) % eval_every == 0 or epoch == epochs - 1
+                if early_stopping == "reference" or is_eval:
+                    with span("fit.host_read"):
+                        loss = loss.item()
+                rec = {"loss": loss}
+                if is_eval:
+                    with span("fit.eval"):
+                        m = self._eval_step(adj, feats, y, train_mask, val_mask, n_classes,
+                                            val_denom)
+                    for k, v in m.items():
+                        with span("fit.host_read"):
+                            rec[k] = float(v)
+                    if verbose > 0:
+                        with span("fit.log"):
+                            log_fn(
+                                f"[{epoch + 1:{width}}] loss: {rec['loss']: .3f}, "
+                                f"training accuracy: {rec['train_acc']: .3f}, "
+                                f"val_f1: {rec['val_f1']: .3f}"
+                            )
+                    if early_stopping == "val_f1":
+                        # the reference MLP rule (MLP_flat.py:95-100): stop when
+                        # each of the last `patience` F1s is <= the F1 from
+                        # patience+1 evals ago (no best-params restore)
+                        f1_hist.append(rec["val_f1"])
+                        if epoch > min_epochs and len(f1_hist) > patience:
+                            dec = sum(
+                                f1_hist[-(i + 1)] <= f1_hist[-(patience + 1)]
+                                for i in range(patience)
+                            )
+                            if dec >= patience:
+                                if verbose > 0:
+                                    with span("fit.log"):
+                                        log_fn(f"Early stopping! Validation f1 decreased "
+                                               f"for {dec} epochs!")
+                                history.append(rec)
+                                break
+                history.append(rec)
+                if (
+                    early_stopping == "reference"
+                    and epoch > 5
+                    and len(history) >= 5
+                    and history[-5]["loss"] < history[-1]["loss"]
+                ):
+                    if verbose > 0:
+                        with span("fit.log"):
+                            log_fn("early stopping activated!")
+                    break
         if verbose > 0:
-            log_fn(f"training took {time.time() - t0:.2f}s for {len(history)} epochs")
+            with span("fit.log"):
+                log_fn(f"training took {time.time() - t0:.2f}s for {len(history)} epochs")
         return [{k: float(v) for k, v in rec.items()} for rec in history]
 
     def fit_minibatch(
@@ -502,33 +525,40 @@ class Trainer:
         history: List[Dict[str, float]] = []
         t_start = time.time()
         for epoch in range(epochs):
-            losses = []
-            batches = iter(batcher)
-            while True:
-                t0 = time.perf_counter()
-                sub = next(batches, None)
-                if sub is None:
-                    break
-                t1 = time.perf_counter()
-                adj = sub.to_adj(self.device, use_pallas=self.use_pallas,
-                                 pallas_dtype=self.pallas_dtype)
-                sync()
-                t2 = time.perf_counter()
-                nodes = self._tensor(sub.nodes[:adj.n_nodes])
-                mask = torch.zeros(adj.n_nodes, dtype=torch.bool, device=self.device)
-                mask[self._tensor(sub.batch_local[sub.batch_local >= 0], torch.int64)] = True
-                losses.append(self._train_step(adj, feats_full.subgraph(nodes),
-                                               y_full[nodes.clamp(min=0)], mask, epoch=epoch))
-                sync()
-                self.minibatch_seconds.append({"batcher": t1 - t0, "plan": t2 - t1,
-                                               "step": time.perf_counter() - t2})
-            mean_loss = float(torch.stack(losses).mean())
-            history.append({"loss": mean_loss})
-            if verbose > 0:
-                log_fn(f"[{epoch + 1}] minibatch mean loss: {mean_loss: .4f}")
+            with span("fit.epoch", epoch=epoch + 1):
+                losses = []
+                batches = iter(batcher)
+                while True:
+                    t0 = time.perf_counter()
+                    sub = next(batches, None)
+                    if sub is None:
+                        break
+                    t1 = time.perf_counter()
+                    adj = sub.to_adj(self.device, use_pallas=self.use_pallas,
+                                     pallas_dtype=self.pallas_dtype)
+                    sync()
+                    t2 = time.perf_counter()
+                    nodes = self._tensor(sub.nodes[:adj.n_nodes])
+                    mask = torch.zeros(adj.n_nodes, dtype=torch.bool, device=self.device)
+                    mask[self._tensor(sub.batch_local[sub.batch_local >= 0],
+                                      torch.int64)] = True
+                    with span("fit.train_step"):
+                        losses.append(self._train_step(adj, feats_full.subgraph(nodes),
+                                                       y_full[nodes.clamp(min=0)], mask,
+                                                       epoch=epoch))
+                    sync()
+                    self.minibatch_seconds.append({"batcher": t1 - t0, "plan": t2 - t1,
+                                                   "step": time.perf_counter() - t2})
+                with span("fit.host_read"):
+                    mean_loss = float(torch.stack(losses).mean())
+                history.append({"loss": mean_loss})
+                if verbose > 0:
+                    with span("fit.log"):
+                        log_fn(f"[{epoch + 1}] minibatch mean loss: {mean_loss: .4f}")
         if verbose > 0:
-            log_fn(f"minibatch training took {time.time() - t_start:.2f}s "
-                   f"({epochs} epochs x {len(batcher)} batches)")
+            with span("fit.log"):
+                log_fn(f"minibatch training took {time.time() - t_start:.2f}s "
+                       f"({epochs} epochs x {len(batcher)} batches)")
         return history
 
     def save(self, path: str, epoch: int) -> None:
