@@ -45,11 +45,27 @@ feeds the partition as a replicated activation, or its rank's rows under
 the halo, and the halo's sum of gradients over the ranks leaves the cut
 blocks out: each rank's block already has the gradient of every row.
 
+On one card ``fit`` runs each epoch as two CUDA-graph replays
+(``train/graphs.py``): the train step's forward, loss and backward, then,
+at evaluation points, the evaluation; the optimizer runs eagerly between
+them. Each graph is captured once the trainer has run its work eagerly on
+the operator (the step's graph at the second epoch, the evaluation's at the
+evaluation point after the first), and kept across ``fit`` calls. The step runs eagerly instead where
+the trainer observes what a replay cannot give: the CPU, a ``mesh`` or
+``tp_mesh``, ``debug_checks`` (which read every step), an operator other
+than the CSR kernel's, or a gradient hook on a parameter (autograd calls
+hooks only in an eager step).
+``graph_stats`` counts the replayed and the eager epochs. Either way an
+epoch reads the device once: the loss and, at evaluation points, the
+evaluation's three numbers, in one copy.
+
 While a ``torch.profiler`` runs, ``fit`` and ``fit_minibatch`` mark their
 phases with spans (``train/profiling.py``): ``fit.epoch`` around each epoch,
-and inside it ``fit.train_step`` and ``fit.eval`` (the enqueue), one
-``fit.host_read`` a number read back from the device, and ``fit.log``. Each
-``fit`` call is the stage ``trainer.fit``.
+and inside it ``fit.train_step`` and ``fit.eval`` (the enqueue; each holds a
+``fit.replay`` span, ``graph=T`` or ``E``, where it replays), one
+``fit.host_read`` for the epoch's read from the device, and ``fit.log``.
+Each ``fit`` call is the stage ``trainer.fit``; a capture, the stage
+``trainer.capture``.
 """
 
 from __future__ import annotations
@@ -66,11 +82,17 @@ from ..models.jk import JK_NO_MASKED_HEAD
 from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
 from ..ops.restricted import RestrictedAdj, build_restricted_adj
+from ..ops.spmm_cuda import SpmmPlan
 from ..utils import resolve_device
 from .checkpoint import load_checkpoint, load_meta, save_checkpoint
+from .graphs import EpochGraphs, hooked
 from .metrics import accuracy, global_count, macro_f1, masked_cross_entropy
 from .optim import resolve_optimizer
 from .profiling import span, stage
+
+# What fit's one read per epoch holds, in order: the train loss, then the
+# evaluation's numbers (_eval_step's keys)
+EPOCH_READ = ("loss", "val_loss", "val_f1", "train_acc")
 
 
 def dropout_seed(seed: int) -> int:
@@ -184,6 +206,13 @@ class Trainer:
         self._adj_out: Optional[RestrictedAdj] = None
         self._adj_out_key: Optional[tuple] = None
         self._restored = False
+        # fit's CUDA graphs (train/graphs.py), and the keys of the last eager
+        # step and evaluation, which warm them up
+        self._graphs: Optional[EpochGraphs] = None
+        self._warm_step: Optional[tuple] = None
+        self._warm_eval: Optional[tuple] = None
+        # fit's epochs whose step ran as a graph replay, and eagerly
+        self.graph_stats = {"replayed": 0, "eager": 0}
         # fit_minibatch's host-clock seconds a batch: batcher, plan, step
         self.minibatch_seconds: List[Dict[str, float]] = []
 
@@ -222,6 +251,7 @@ class Trainer:
                     h_hint=getattr(self.model, "n_hidden", 128), plan_cache=self.plan_cache,
                 )
             self._adj_key = key
+            self._drop_graphs()
         self._feats = NodeFeatures.from_graph(g, device=self.device)
         if self.halo and getattr(self.model, "tp", None) is None:
             # the rank's rows of the first layer's input (a TP embedding
@@ -290,16 +320,23 @@ class Trainer:
             self._adj_out_key = key
         return self._adj_out
 
+    def _loss_backward(self, adj, feats, y, mask, adj_out=None,
+                       denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The step's forward, masked cross-entropy and backward (what graph
+        T holds); returns the loss."""
+        logits = self.model(adj, feats, train=True, generator=self.generator,
+                            adj_out=adj_out)
+        loss = masked_cross_entropy(logits, y, mask, denom)
+        loss.backward()
+        return loss
+
     def _train_step(self, adj, feats, y, mask, adj_out=None, epoch: int = 0,
                     denom: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step; returns the loss. ``denom``: the halo's global train
         count (the rank's loss is its part of the sum, and the gradients
         and the returned loss are summed over the ranks)."""
         self.optimizer.zero_grad(set_to_none=True)
-        logits = self.model(adj, feats, train=True, generator=self.generator,
-                            adj_out=adj_out)
-        loss = masked_cross_entropy(logits, y, mask, denom)
-        loss.backward()
+        loss = self._loss_backward(adj, feats, y, mask, adj_out, denom)
         if self.halo:
             loss = self._sum_over_ranks(loss.detach())
         if self.debug_checks:
@@ -353,6 +390,39 @@ class Trainer:
             "val_f1": macro_f1(pred, y, val_mask, n_classes, group),
             "train_acc": accuracy(pred, y, train_mask, group),
         }
+
+    def _eval_result(self, adj, feats, y, train_mask, val_mask, loss: torch.Tensor,
+                     n_classes: int, val_denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The evaluation beside the step's ``loss``: the ``EPOCH_READ``
+        numbers as one ``[4]`` tensor (what graph E holds)."""
+        m = self._eval_step(adj, feats, y, train_mask, val_mask, n_classes, val_denom)
+        return torch.stack([loss] + [m[k] for k in EPOCH_READ[1:]])
+
+    def _graph_key(self, adj, adj_out, inputs, n_classes: int) -> Optional[tuple]:
+        """What fit's graphs are captured for: the operators (by identity),
+        the classes, each parameter's storage and shape and each input's
+        shape and dtype. None where the trainer's fit runs eagerly: off the
+        card, over a mesh, with debug checks, or on an operator other than
+        the CSR kernel's (the segment path's atomics make even two eager fits
+        differ; the hybrid). The masked head's operator then runs on the CSR
+        kernel too."""
+        if (self.device.type != "cuda" or self.mesh is not None or self.tp_mesh is not None
+                or self.debug_checks or not isinstance(adj.plan, SpmmPlan)):
+            return None
+        return (adj, adj_out, n_classes,
+                tuple((p.data_ptr(), p.shape) for p in self.model.parameters()),
+                tuple(None if t is None else (t.shape, t.dtype) for t in inputs))
+
+    @staticmethod
+    def _same_key(a: Optional[tuple], b: Optional[tuple]) -> bool:
+        return (a is not None and b is not None and a[0] is b[0] and a[1] is b[1]
+                and a[2:] == b[2:])
+
+    def _drop_graphs(self) -> None:
+        """Forget fit's graphs and their warm-up (a new operator, restored
+        state): the next epoch runs eagerly, the one after captures."""
+        self._graphs = None
+        self._warm_step = self._warm_eval = None
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -409,31 +479,54 @@ class Trainer:
                 y_step = y.index_select(0, adj_out.rows)
                 mask_step = torch.ones(adj_out.m, dtype=torch.bool, device=self.device)
 
+        inputs = (y, train_mask, val_mask, y_step, mask_step, feats.x, feats.hierarchy)
+        key = self._graph_key(adj, adj_out, inputs, n_classes)
+        graphs = self._graphs
+        if graphs is not None and self._same_key(graphs.key, key):
+            graphs.load(inputs)
+        else:
+            graphs = self._graphs = None
+        params = list(self.model.parameters())
+
         history: List[Dict[str, float]] = []
         f1_hist: List[float] = []  # val F1 at eval points (for 'val_f1' ES)
         width = len(str(epochs))
         t0 = time.time()
         for epoch in range(start_epoch, epochs):
             with span("fit.epoch", epoch=epoch + 1):
-                # the host reads are spans of their own, beside the step's and
-                # the evaluation's: those hold the enqueue, the reads the waits
+                eager = hooked(params)  # a hook is called only in an eager step
+                if graphs is None and not eager and self._same_key(self._warm_step, key):
+                    graphs = self._graphs = EpochGraphs(key, params, self.generator, adj, feats,
+                                                        adj_out, inputs, self._loss_backward)
+                replay = graphs is not None and not eager
                 with span("fit.train_step"):
-                    loss = self._train_step(adj, feats, y_step, mask_step, adj_out, epoch,
-                                            denom)
-                # reading the loss synchronizes with the device: only where the
-                # reference rule needs every epoch's loss, or at eval points
+                    if replay:
+                        loss = graphs.step(self.optimizer)
+                    else:
+                        loss = self._train_step(adj, feats, y_step, mask_step, adj_out, epoch,
+                                                denom)
+                        if graphs is not None:  # graph E reads T's loss buffer
+                            graphs.loss.copy_(loss)
+                        self._warm_step = key
+                self.graph_stats["replayed" if replay else "eager"] += 1
+                # the epoch's one read from the device, once its evaluation is
+                # enqueued: the loss with the evaluation's numbers at evaluation
+                # points, the loss alone on other epochs of the reference rule
                 is_eval = (epoch + 1) % eval_every == 0 or epoch == epochs - 1
-                if early_stopping == "reference" or is_eval:
-                    with span("fit.host_read"):
-                        loss = loss.item()
-                rec = {"loss": loss}
                 if is_eval:
                     with span("fit.eval"):
-                        m = self._eval_step(adj, feats, y, train_mask, val_mask, n_classes,
-                                            val_denom)
-                    for k, v in m.items():
-                        with span("fit.host_read"):
-                            rec[k] = float(v)
+                        if (graphs is not None and graphs.eval_graph is None
+                                and self._same_key(self._warm_eval, key)):
+                            graphs.capture_eval(
+                                lambda *a: self._eval_result(*a, n_classes=n_classes))
+                        if graphs is not None and graphs.eval_graph is not None:
+                            out = graphs.evaluate()
+                        else:
+                            out = self._eval_result(adj, feats, y, train_mask, val_mask, loss,
+                                                    n_classes, val_denom)
+                            self._warm_eval = key
+                    with span("fit.host_read"):
+                        rec = dict(zip(EPOCH_READ, out.tolist()))
                     if verbose > 0:
                         with span("fit.log"):
                             log_fn(
@@ -458,6 +551,11 @@ class Trainer:
                                                f"for {dec} epochs!")
                                 history.append(rec)
                                 break
+                elif early_stopping == "reference":
+                    with span("fit.host_read"):
+                        rec = {"loss": loss.item()}
+                else:  # read after the loop; a replay's buffer is written again
+                    rec = {"loss": loss.clone() if replay else loss}
                 history.append(rec)
                 if (
                     early_stopping == "reference"
@@ -604,6 +702,7 @@ class Trainer:
             self.optimizer.load_state_dict(apply_tp_state(self.model, state["optimizer"]))
             self.generator.set_state(state["generator"])
         self._restored = True
+        self._drop_graphs()
         return int(load_meta(path).get("epoch", 0))
 
     @torch.no_grad()
