@@ -22,7 +22,8 @@ zero gradients. Where the JAX package vmaps the members' SpMMs, the
 port applies ``A_hat`` once to the members' activations laid side by
 side, ``[N, M * H]``: one CSR kernel launch of width M * H per
 application instead of M of width H, the same function. Composed
-inference runs all members in one such pass too.
+inference runs all members in one such pass too. :class:`Ensemble` holds
+that state: built once, it steps the members ``fit`` after ``fit``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -45,6 +46,7 @@ from ..parallel.sharded import Mesh, all_gather_rows
 from ..train.checkpoint import save_checkpoint
 from ..train.metrics import accuracy, macro_f1
 from ..train.optim import resolve_optimizer
+from ..train.profiling import span, stage
 from ..train.trainer import Trainer
 
 # padded class logits: exp() underflows to exactly 0 in f32, so padded
@@ -110,9 +112,9 @@ def train_per_label(
         mesh = None
         ep = True
     if ep or mesh is not None:
-        return _train_per_label_ep(g, y_child, y_parent, model_factory, lr=lr, epochs=epochs,
-                                   seed=seed, verbose=verbose, save_dir=save_dir,
-                                   trainer_kwargs=trainer_kwargs, mesh=mesh)
+        ens = Ensemble(g, y_child, y_parent, model_factory, lr=lr, seed=seed,
+                       trainer_kwargs=trainer_kwargs, mesh=mesh)
+        return ens.finish(ens.fit(epochs, verbose=verbose), save_dir)
     trainer_kwargs = dict(trainer_kwargs or {})
     # the reference's per-label driver trains with PLAIN Adam, not amsgrad
     # (perlabel_amazon.py:124)
@@ -318,148 +320,234 @@ def _gather_members(mesh: Optional[Mesh], t: torch.Tensor, dim: int) -> torch.Te
     return all_gather_rows(mesh, t.movedim(dim, 0)).movedim(0, dim)
 
 
-def _train_per_label_ep(g: TextGraph, y_child, y_parent, model_factory, *, lr: float,
-                        epochs: int, seed: int, verbose: int, save_dir: Optional[str],
-                        trainer_kwargs: Optional[dict], mesh: Optional[Mesh] = None):
-    """All members in one batched train step (the JAX package's
-    ``_train_per_label_ep``). Each member is initialized by
-    ``model_factory`` in the sequential path's order, draws its dropout
-    from the generator its sequential Trainer would use, and its masked
-    cross-entropy is summed with the others' before one backward pass, so
-    the trajectory is the sequential one's. One optimizer over the stacked
-    parameters equals one per member: Adam is elementwise and every
-    member steps on every step. The returned Trainers carry their
-    member's parameters, optimizer state and generator, ready to refit.
+class Ensemble:
+    """The batched ensemble (``train_per_label(ep=True)``, the JAX package's
+    ``_train_per_label_ep``) as a resumable trainer: the set-up runs once
+    (the members' labels and masks, their models from ``model_factory``,
+    their Trainers and generators, one shared operator, the stacked and
+    padded parameters and one optimizer over them), then :meth:`fit` steps
+    every member on that state as often as it is called, and :meth:`finish`
+    hands each member's state to its Trainer.
+
+    Each member is initialized by ``model_factory`` in the sequential path's
+    order, draws its dropout from the generator its sequential Trainer would
+    use, and its masked cross-entropy is summed with the others' before one
+    backward pass, so the trajectory is the sequential one's. One optimizer
+    over the stacked parameters equals one per member: Adam is elementwise
+    and every member steps on every step.
 
     With a ``mesh`` of D ranks the members are padded to ``m_pad = ceil(M /
     D) * D`` and rank r steps members ``[r * m_pad / D, (r+1) * m_pad / D)``
-    on its device (the block ``P(axis)`` gives a JAX rank), dummies past M
-    with an all-false mask; the operator's hybrid cost model is priced at
-    that block (``hybrid_batch``). Every rank then gathers every member's
-    parameters, optimizer state and generator; rank 0 alone writes
-    ``save_dir``."""
-    trainer_kwargs = dict(trainer_kwargs or {})
-    if trainer_kwargs.get("optimizer") is None:
-        trainer_kwargs["optimizer"] = "adam"  # perlabel_amazon.py:124
-    if mesh is not None:
-        asked = trainer_kwargs.get("device")
-        if asked is not None and torch.device(asked) != mesh.device:
-            raise ValueError(f"device {asked} is not the mesh's {mesh.device}")
-        trainer_kwargs["device"] = mesh.device
-    y_child = np.asarray(y_child, np.int64)
-    y_parent = np.asarray(y_parent, np.int64)
-    members = _member_label_arrays(g, y_child, y_parent, int(y_parent.max()) + 1)
-    mapping = {c: classes.tolist() for c, (classes, _, _) in enumerate(members)}
-    c_list = [len(classes) for classes, _, _ in members]
-    models = [model_factory(g.in_dim, c) for c in c_list]
-    if _architecture(models) is None:
-        raise ValueError("the batched ensemble (--train-ep) stacks members of one "
-                         "architecture: GCNs, EGCNs or JK networks")
-    trainers = [Trainer(m, lr=lr, seed=seed, **trainer_kwargs) for m in models]
-    lead = trainers[0]
-    dev = lead.device
-    world, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
-    m_local = -(-len(models) // world)
-    mine = [i for i in range(rank * m_local, (rank + 1) * m_local) if i < len(models)]
-    n_dummy = m_local - len(mine)
-    adj = NormAdj.from_graph(
-        g, use_pallas=lead.use_pallas, pallas_dtype=lead.pallas_dtype, device=dev,
-        hybrid_k=lead.hybrid_k, hybrid_fused=lead.hybrid_fused,
-        hybrid_f32_mode=lead.hybrid_f32_mode, hybrid_batch=m_local,
-        h_hint=models[0].n_hidden, plan_cache=lead.plan_cache)
-    feats = NodeFeatures.from_graph(g, device=dev)
-    for t in trainers:  # the returned members adopt the operator
-        t._adj, t._adj_key, t._feats = adj, (g.edge_src, g.edge_w, g.n_nodes), feats
+    (``mine``) on its device (the block ``P(axis)`` gives a JAX rank), dummies
+    past M with an all-false mask; the operator's hybrid cost model is priced
+    at that block (``hybrid_batch``)."""
 
-    # this rank's block; a dummy repeats member 0 and trains on no row
-    c_local = [c_list[i] for i in mine] + [c_list[0]] * n_dummy
-    params = _stack_members([models[i] for i in mine] + [models[0]] * n_dummy, c_local, dev,
-                            c_max=max(c_list))
-    opt = resolve_optimizer(trainer_kwargs["optimizer"], params, lr)
-    no_rows = np.zeros(g.n_nodes, bool)
-    y = torch.as_tensor(np.stack([members[i][1] for i in mine]
-                                 + [np.zeros(g.n_nodes, np.int32)] * n_dummy, 1),
-                        dtype=torch.int64, device=dev)  # [N, m_local]
-    mask = torch.as_tensor(np.stack([np.asarray(g.train_mask) & members[i][2] for i in mine]
-                                    + [no_rows] * n_dummy, 1), device=dev).float()
-    gens = [trainers[i].generator for i in mine] + [
-        torch.Generator(device=dev).manual_seed(0) for _ in range(n_dummy)]
-    local_losses = []
-    for epoch in range(epochs):
-        losses = ep_train_step(params, opt, models[0], adj, feats, y, mask, gens, c_local)
-        if lead.debug_checks:
-            Trainer._check_finite(epoch, [("member losses", losses)] + [
-                (f"stacked gradient {j}", q.grad) for j, q in enumerate(params)] + [
-                (f"stacked parameter {j}", q) for j, q in enumerate(params)])
-        local_losses.append(losses)
-        if verbose > 0 and (epoch + 1) % 50 == 0:
-            print(f"[EP {epoch + 1}] member losses: {losses[:len(mine)].cpu().numpy()}")
+    steps = 0  # batched train steps taken in this process, by every ensemble
 
-    roles = _roles(models[0])
-    with torch.no_grad():
-        stacked = [_gather_members(mesh, p.detach(), _member_dim(r))
-                   for p, r in zip(params, roles)]
-        state = {j: {k: v if v.dim() == 0 else _gather_members(mesh, v, _member_dim(roles[j]))
-                     for k, v in st.items()}
-                 for j, st in opt.state_dict()["state"].items()}
-        loss_rows = (torch.stack(local_losses) if local_losses
-                     else torch.zeros((0, m_local), device=dev))
-        loss_rows = _gather_members(mesh, loss_rows, 1).cpu()  # [epochs, m_pad]
-        for i, t in enumerate(trainers):
-            member_state = {}
-            for j, (p, q) in enumerate(zip(t.model.parameters(), stacked)):
-                # the padded class columns cut off: the member's own shape
-                p.copy_(_member(roles[j], q, i)[..., :p.shape[-1]])
-                member_state[j] = {
-                    k: v.clone() if v.dim() == 0
-                    else _member(roles[j], v, i)[..., :p.shape[-1]].clone()
-                    for k, v in state[j].items()}
-            sd = t.optimizer.state_dict()
-            t.optimizer.load_state_dict({"state": member_state,
-                                         "param_groups": sd["param_groups"]})
-    if world > 1:  # each member's dropout stream from the rank that stepped it
-        gen_states = [None] * world
-        torch.distributed.all_gather_object(
-            gen_states, [trainers[i].generator.get_state() for i in mine], group=mesh.group)
-        for r, states in enumerate(gen_states):
-            for i, st in zip(range(r * m_local, len(models)), states):
-                trainers[i].generator.set_state(st)
-    if save_dir is not None and rank == 0:
-        for c, t in enumerate(trainers):
-            save_checkpoint(os.path.join(save_dir, f"lvl2-cat{c}"), export_params(t.model),
-                            meta={"parent": c, "classes": mapping[c]})
-        with open(os.path.join(save_dir, "class_mapping.json"), "w") as f:
-            json.dump({str(k): v for k, v in mapping.items()}, f)
-    if save_dir is not None and world > 1:  # the files are there when a rank returns
-        torch.distributed.barrier(group=mesh.group)
-    histories = [[{"loss": float(v)} for v in loss_rows[:, i].tolist()]
-                 for i in range(len(models))]
-    return {"trainers": trainers, "mapping": mapping, "histories": histories}
+    def __init__(self, g: TextGraph, y_child, y_parent, model_factory, *, lr: float = 0.05,
+                 seed: int = 42, trainer_kwargs: Optional[dict] = None,
+                 mesh: Optional[Mesh] = None):
+        trainer_kwargs = dict(trainer_kwargs or {})
+        if trainer_kwargs.get("optimizer") is None:
+            trainer_kwargs["optimizer"] = "adam"  # perlabel_amazon.py:124
+        if mesh is not None:
+            asked = trainer_kwargs.get("device")
+            if asked is not None and torch.device(asked) != mesh.device:
+                raise ValueError(f"device {asked} is not the mesh's {mesh.device}")
+            trainer_kwargs["device"] = mesh.device
+        y_child = np.asarray(y_child, np.int64)
+        y_parent = np.asarray(y_parent, np.int64)
+        members = _member_label_arrays(g, y_child, y_parent, int(y_parent.max()) + 1)
+        self.g, self.mesh = g, mesh
+        self.mapping = {c: classes.tolist() for c, (classes, _, _) in enumerate(members)}
+        self.c_list = [len(classes) for classes, _, _ in members]
+        models = [model_factory(g.in_dim, c) for c in self.c_list]
+        if _architecture(models) is None:
+            raise ValueError("the batched ensemble (--train-ep) stacks members of one "
+                             "architecture: GCNs, EGCNs or JK networks")
+        self.trainers = [Trainer(m, lr=lr, seed=seed, **trainer_kwargs) for m in models]
+        lead = self.trainers[0]
+        dev = lead.device
+        self.model, self.roles = models[0], _roles(models[0])
+        self.names = [n for n, _ in self.model.named_parameters()]
+        world, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+        self.m_local = -(-len(models) // world)
+        self.mine = [i for i in range(rank * self.m_local, (rank + 1) * self.m_local)
+                     if i < len(models)]
+        n_dummy = self.m_local - len(self.mine)
+        self.adj = NormAdj.from_graph(
+            g, use_pallas=lead.use_pallas, pallas_dtype=lead.pallas_dtype, device=dev,
+            hybrid_k=lead.hybrid_k, hybrid_fused=lead.hybrid_fused,
+            hybrid_f32_mode=lead.hybrid_f32_mode, hybrid_batch=self.m_local,
+            h_hint=models[0].n_hidden, plan_cache=lead.plan_cache)
+        self.feats = NodeFeatures.from_graph(g, device=dev)
+        for t in self.trainers:  # the members adopt the operator
+            t._adj, t._adj_key, t._feats = self.adj, (g.edge_src, g.edge_w, g.n_nodes), self.feats
+
+        # this rank's block; a dummy repeats member 0 and trains on no row
+        self.c_local = [self.c_list[i] for i in self.mine] + [self.c_list[0]] * n_dummy
+        with stage("ensemble.stack"):
+            self.params = _stack_members([models[i] for i in self.mine] + [models[0]] * n_dummy,
+                                         self.c_local, dev, c_max=max(self.c_list))
+        self.optimizer = resolve_optimizer(trainer_kwargs["optimizer"], self.params, lr)
+        no_rows = np.zeros(g.n_nodes, bool)
+        self.y = torch.as_tensor(np.stack([members[i][1] for i in self.mine]
+                                          + [np.zeros(g.n_nodes, np.int32)] * n_dummy, 1),
+                                 dtype=torch.int64, device=dev)  # [N, m_local]
+        self.mask = torch.as_tensor(
+            np.stack([np.asarray(g.train_mask) & members[i][2] for i in self.mine]
+                     + [no_rows] * n_dummy, 1), device=dev).float()
+        self.generators = [self.trainers[i].generator for i in self.mine] + [
+            torch.Generator(device=dev).manual_seed(0) for _ in range(n_dummy)]
+        self.debug_checks = lead.debug_checks
+        self.epoch = 0  # the steps taken over every fit
+
+    def step(self) -> torch.Tensor:
+        """One batched train step of this rank's members: the ``[m_local]``
+        losses, on the device."""
+        with span("ensemble.step"):
+            losses = ep_train_step(self.params, self.optimizer, self.model, self.adj,
+                                   self.feats, self.y, self.mask, self.generators, self.c_local)
+        Ensemble.steps += 1
+        if self.debug_checks:
+            Trainer._check_finite(self.epoch, [("member losses", losses)] + [
+                (f"stacked gradient {j}", q.grad) for j, q in enumerate(self.params)] + [
+                (f"stacked parameter {j}", q) for j, q in enumerate(self.params)])
+        self.epoch += 1
+        return losses
+
+    def fit(self, epochs: int, log_fn: Optional[Callable[[str], None]] = None,
+            verbose: int = 0) -> List[List[float]]:
+        """Step every member ``epochs`` times, continuing the state of the
+        last call; returns each epoch's member losses, ``[epochs][m_local]``
+        (a dummy's column after the members). With ``log_fn``, each epoch
+        reads its ``[m_local]`` losses once (``tolist()``) and calls ``log_fn``
+        with ``"[<epoch>] member losses: ..."``, epochs counted over every
+        call; without, nothing is read before the call's end. ``verbose``:
+        print the losses every 50 epochs."""
+        rows = []
+        for _ in range(epochs):
+            losses = self.step()
+            row = losses
+            if log_fn is not None:
+                with span("ensemble.host_read"):
+                    row = losses.tolist()
+                log_fn(f"[{self.epoch}] member losses: "
+                       + ", ".join(f"{v:.4f}" for v in row[:len(self.mine)]))
+            rows.append(row)
+            if verbose > 0 and self.epoch % 50 == 0:
+                print(f"[EP {self.epoch}] member losses: "
+                      f"{losses[:len(self.mine)].cpu().numpy()}")
+        if log_fn is None and rows:
+            rows = torch.stack(rows).tolist()
+        return rows
+
+    def member_params(self, stacked: Optional[List[torch.Tensor]] = None
+                      ) -> List[Dict[str, torch.Tensor]]:
+        """This rank's members' leaves by name, each in its own model's shape:
+        views of ``stacked`` (default: the stacked parameters; also their
+        gradients or a copy)."""
+        stacked = self.params if stacked is None else stacked
+        return [{n: _member(r, q, i)[..., :c] if r in ("pad_w", "pad_b") else _member(r, q, i)
+                 for n, r, q in zip(self.names, self.roles, stacked)}
+                for i, c in enumerate(self.c_local[:len(self.mine)])]
+
+    def logits(self) -> torch.Tensor:
+        """Composed inference's batched forward on the ensemble's own state
+        (no restacking): this rank's members' document logits ``[n_docs,
+        m_local, c_max]``, -inf past each member's class count."""
+        return _document_logits(self.params, self.model, self.adj, self.feats, self.g.n_vocab,
+                                self.c_local)
+
+    def finish(self, rows: List[List[float]], save_dir: Optional[str] = None) -> dict:
+        """Hand every member's parameters, optimizer state and dropout
+        generator to its Trainer, ready to refit (over a mesh: gathered from
+        the rank that stepped it, on every rank; rank 0 alone writes
+        ``save_dir``), and return :func:`train_per_label`'s result with
+        ``rows`` (:meth:`fit`'s) as the histories."""
+        mesh, roles, dev = self.mesh, self.roles, self.trainers[0].device
+        world, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+        with torch.no_grad():
+            stacked = [_gather_members(mesh, p.detach(), _member_dim(r))
+                       for p, r in zip(self.params, roles)]
+            state = {j: {k: v if v.dim() == 0
+                         else _gather_members(mesh, v, _member_dim(roles[j]))
+                         for k, v in st.items()}
+                     for j, st in self.optimizer.state_dict()["state"].items()}
+            loss_rows = torch.tensor(rows, dtype=torch.float32, device=dev).reshape(
+                -1, self.m_local)
+            loss_rows = _gather_members(mesh, loss_rows, 1).cpu()  # [epochs, m_pad]
+            for i, t in enumerate(self.trainers):
+                member_state = {}
+                for j, (p, q) in enumerate(zip(t.model.parameters(), stacked)):
+                    # the padded class columns cut off: the member's own shape
+                    p.copy_(_member(roles[j], q, i)[..., :p.shape[-1]])
+                    member_state[j] = {
+                        k: v.clone() if v.dim() == 0
+                        else _member(roles[j], v, i)[..., :p.shape[-1]].clone()
+                        for k, v in state[j].items()}
+                sd = t.optimizer.state_dict()
+                t.optimizer.load_state_dict({"state": member_state,
+                                             "param_groups": sd["param_groups"]})
+        if world > 1:  # each member's dropout stream from the rank that stepped it
+            gen_states = [None] * world
+            torch.distributed.all_gather_object(
+                gen_states, [self.trainers[i].generator.get_state() for i in self.mine],
+                group=mesh.group)
+            for r, states in enumerate(gen_states):
+                for i, st in zip(range(r * self.m_local, len(self.trainers)), states):
+                    self.trainers[i].generator.set_state(st)
+        if save_dir is not None and rank == 0:
+            for c, t in enumerate(self.trainers):
+                save_checkpoint(os.path.join(save_dir, f"lvl2-cat{c}"), export_params(t.model),
+                                meta={"parent": c, "classes": self.mapping[c]})
+            with open(os.path.join(save_dir, "class_mapping.json"), "w") as f:
+                json.dump({str(k): v for k, v in self.mapping.items()}, f)
+        if save_dir is not None and world > 1:  # the files are there when a rank returns
+            torch.distributed.barrier(group=mesh.group)
+        histories = [[{"loss": float(v)} for v in loss_rows[:, i].tolist()]
+                     for i in range(len(self.trainers))]
+        return {"trainers": self.trainers, "mapping": self.mapping, "histories": histories}
 
 
-def _batched_member_preds(g_eval: TextGraph, trainers: List[Trainer],
-                          c_list: List[int]) -> Optional[np.ndarray]:
-    """Every member's document predictions in one forward pass of the
-    stacked, padded members (padded columns never win): ``[M, n_docs]``,
-    or None when the members do not stack (the member loop then runs)."""
+def _document_logits(params: List[torch.Tensor], model: torch.nn.Module, adj,
+                     feats: NodeFeatures, n_vocab: int, c_list: List[int]) -> torch.Tensor:
+    """The stacked members' document logits, ``[n_docs, M, C_max]``, in one
+    forward pass, -inf past each member's class count (never an argmax)."""
+    with span("ensemble.eval"), torch.no_grad():
+        logits = _stacked_logits(params, model, adj, feats)[n_vocab:]
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        c = torch.as_tensor(c_list, device=logits.device)
+        return torch.where(col < c[:, None], logits, -torch.inf)
+
+
+def _batched_member_logits(g_eval: TextGraph, trainers: List[Trainer],
+                           c_list: List[int]) -> Optional[torch.Tensor]:
+    """Every member's document logits in one forward pass of the stacked,
+    padded members (:func:`_document_logits`), or None when the members do
+    not stack (the member loop then runs)."""
     models = [t.model for t in trainers]
     if len(trainers) < 2 or _architecture(models) is None:
         return None
     adj, feats = trainers[0].prepare(g_eval)
     with torch.no_grad():
         params = _stack_members(models, c_list, trainers[0].device)
-        logits = _stacked_logits(params, models[0], adj, feats)[g_eval.n_vocab:]
-        col = torch.arange(logits.shape[-1], device=logits.device)
-        c = torch.as_tensor(c_list, device=logits.device)
-        logits = torch.where(col < c[:, None], logits, -torch.inf)
-        return logits.argmax(dim=-1).t().cpu().numpy()
+    return _document_logits(params, models[0], adj, feats, g_eval.n_vocab, c_list)
+
+
+def _batched_member_preds(g_eval: TextGraph, trainers: List[Trainer],
+                          c_list: List[int]) -> Optional[np.ndarray]:
+    """Every member's document predictions (padded columns never win):
+    ``[M, n_docs]``, or None when the members do not stack."""
+    logits = _batched_member_logits(g_eval, trainers, c_list)
+    return None if logits is None else logits.argmax(dim=-1).t().cpu().numpy()
 
 
 def eval_per_label(
     g: TextGraph,
     y_child: np.ndarray,
     y_parent: np.ndarray,
-    trainers: List[Trainer],
+    trainers: Union[List[Trainer], "Ensemble"],
     mapping: Dict[int, List[int]],
     parent_pred: Optional[np.ndarray] = None,
     route: str = "ground_truth",
@@ -467,12 +555,16 @@ def eval_per_label(
     """Composed hierarchical inference (eval_perlabel.py:57-85): every
     member in one batched forward pass when they stack (GCNs of one
     architecture), else one member at a time; the two give the same
-    predictions.
+    predictions. ``trainers``: the members' Trainers, or the
+    :class:`Ensemble` that trains them (one device), whose stacked state the
+    pass reads as it stands, on the graph the ensemble was built on.
 
     ``route='ground_truth'`` routes each test document by its true parent
     class, as the reference does; ``route='predicted'`` by ``parent_pred``
     (per-document parent predictions, e.g. of a level-1 flat model). A
     document no member takes stays -1 and scores as a label of its own.
+    Besides the scores and predictions, ``"logits"`` holds the batched
+    pass's ``[n_docs, M, C_max]`` document logits (None for the member loop).
     """
     if route not in ("ground_truth", "predicted"):
         raise ValueError(f"unknown route {route!r}")
@@ -492,17 +584,24 @@ def eval_per_label(
     g_eval = dataclasses.replace(g, y=y_nodes)
 
     predictions = np.full(len(y_child), -1, np.int64)
-    c_list = [len(mapping[c]) for c in range(len(trainers))]
-    preds_all = _batched_member_preds(g_eval, trainers, c_list)
-    for c, trainer in enumerate(trainers):
+    c_list = [len(mapping[c]) for c in range(len(mapping))]
+    if isinstance(trainers, Ensemble):
+        if len(trainers.mine) != len(c_list):
+            raise ValueError("an ensemble over ranks holds a block of the members: "
+                             "evaluate the Trainers that Ensemble.finish returns")
+        logits = trainers.logits()
+    else:
+        logits = _batched_member_logits(g_eval, trainers, c_list)
+    preds_all = None if logits is None else logits.argmax(dim=-1).t().cpu().numpy()
+    for c in range(len(c_list)):
         sel = (router == c) & test_docs
         if not sel.any():
             continue
         if preds_all is not None:
             local_pred = preds_all[c][sel]
         else:
-            logits = trainer.predict_logits(g_eval)[g.n_vocab:]
-            local_pred = logits.argmax(dim=-1).cpu().numpy()[sel]
+            member = trainers[c].predict_logits(g_eval)[g.n_vocab:]
+            local_pred = member.argmax(dim=-1).cpu().numpy()[sel]
         predictions[sel] = np.asarray(mapping[c], np.int64)[local_pred]
 
     # shift by 1 so an unrouted -1 becomes its own (always wrong) label,
@@ -515,4 +614,5 @@ def eval_per_label(
         "accuracy": float(accuracy(pt, yt, m)),
         "f1_macro": float(macro_f1(pt, yt, m, n_classes)),
         "predictions": predictions,
+        "logits": logits,
     }

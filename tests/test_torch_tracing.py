@@ -4,7 +4,7 @@ opens them (``Trainer.fit``, ``fit_minibatch``, ``Text2Graph``,
 readers of them (``benchmark/metrics/``) on hand-built traces and stage
 records.
 
-The last test is marked ``gpu`` and skips without a card. On the card
+The last two tests are marked ``gpu`` and skip without a card. On the card
 (no JAX there, so tests/conftest.py is skipped and the marker registered on
 the command line):
 ``python -m pytest --noconftest -o "markers=gpu: needs a CUDA device"
@@ -30,6 +30,8 @@ from benchmark import harness, tracing  # noqa: E402
 from pytextgcn_tpu_torch import Text2Graph  # noqa: E402
 from pytextgcn_tpu_torch.build import native_bridge  # noqa: E402
 from pytextgcn_tpu_torch.data import synthetic_corpus  # noqa: E402
+from pytextgcn_tpu_torch.hierarchy import eval_per_label  # noqa: E402
+from pytextgcn_tpu_torch.hierarchy.perlabel import Ensemble  # noqa: E402
 from pytextgcn_tpu_torch.models import GCN  # noqa: E402
 from pytextgcn_tpu_torch.ops import NormAdj  # noqa: E402
 from pytextgcn_tpu_torch.train import Trainer, profiling  # noqa: E402
@@ -254,6 +256,47 @@ def test_native_library_records_a_build_only_when_it_builds(monkeypatch):
     assert [r.name for r in _since(t0)] == ["kernels.build", "kernels.load"]
 
 
+# ------------------------------------------------------------- the ensemble
+
+
+def _ensemble(g, device="cpu"):
+    """Two members over the graph's three classes (parents 0: {0, 1}, 1: {2}),
+    hidden 8: the batched step aggregates at widths 16 and 4."""
+    child = np.asarray(g.y)[g.n_vocab:]
+    gen = torch.Generator().manual_seed(2)
+    factory = lambda d_in, d_out: GCN(d_in, d_out, n_hidden_gcn=8, dropout=0.5, generator=gen)
+    return Ensemble(g, child, child // 2, factory, trainer_kwargs={"device": device}), child
+
+
+def test_ensemble_spans_each_step_read_and_inference(graph, tmp_path):
+    t0 = time.perf_counter()
+    ens, child = _ensemble(graph)
+    assert [r.name for r in _since(t0) if r.name.startswith("ensemble.")] == ["ensemble.stack"]
+    steps = Ensemble.steps
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ens.fit(3, log_fn=lambda msg: None)
+        ens.fit(2)  # no log_fn: no read an epoch
+        eval_per_label(graph, child, child // 2, ens, ens.mapping)
+    events = _events(prof, tmp_path)
+    step, read = _spans(events, "ensemble.step"), _spans(events, "ensemble.host_read")
+    assert (len(step), len(read), len(_spans(events, "ensemble.eval"))) == (5, 3, 1)
+    assert Ensemble.steps == steps + 5
+    # each read follows its epoch's step, outside it
+    for s, r in zip(step, read):
+        assert s["ts"] + s["dur"] <= r["ts"] and not _inside(r, s)
+
+
+def test_ensemble_makes_no_profiler_call_when_no_profiler_runs(graph, monkeypatch):
+    ens, child = _ensemble(graph)
+    # the spans' call (torch's optimizer opens its own ranges through
+    # torch.autograd.profiler, as it does in any program)
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    steps = Ensemble.steps
+    ens.fit(2, log_fn=lambda msg: None)
+    eval_per_label(graph, child, child // 2, ens, ens.mapping)
+    assert Ensemble.steps == steps + 2
+
+
 # ----------------------------------------------------------------- readers
 
 
@@ -386,3 +429,22 @@ def test_each_csr_launch_has_one_span_before_its_kernel(cuda, graph, tmp_path):
                   and ev["args"].get("correlation") in by_corr]
         kernel = linked[0] if linked else kernels[k]
         assert kernel["ts"] >= span["ts"], (k, span, kernel)
+
+
+@pytest.mark.gpu
+def test_the_ensemble_launches_four_csr_kernels_an_epoch(cuda, graph):
+    """The batched step's CSR launches: forward at M * H and M * C_max, then
+    their gradients; the counter counts launches that ran."""
+    from pytextgcn_tpu_torch.ops import spmm_cuda
+
+    ens, _ = _ensemble(graph, device=cuda)
+    ens.fit(1)  # builds the kernel and the operator
+    torch.cuda.synchronize()
+    k = spmm_cuda.spmm_csr_kernel
+    launches, shapes = k.launches, dict(k.shapes)
+    ens.fit(3)
+    torch.cuda.synchronize()
+    n = graph.n_nodes
+    assert k.launches - launches == 12
+    assert {w: k.shapes.get((n, n, w), 0) - shapes.get((n, n, w), 0) for w in (16, 4)} == {
+        16: 6, 4: 6}
