@@ -12,8 +12,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
 Phases, each fatal (exit code 1, no result line) when it fails:
 
-1. build: the two CUDA kernels (``csrc/spmm_csr.cu``, ``csrc/fused_dual.cu``,
-   nvcc for sm_90a, their ptxas registers and spills), three timing builds
+1. build: the three CUDA kernels (``csrc/spmm_csr.cu``, ``csrc/fused_dual.cu``,
+   ``csrc/adam.cu``, nvcc for sm_90a, their ptxas registers and spills), three timing builds
    of the CSR kernel (every row read from L1, no row reads, cache hints:
    ``CSR_TIMING_BUILDS``), four of the dual kernel (f32: one TF32
    pass, no split; split: one bf16 pass; split and bf16: float4 hot
@@ -28,7 +28,8 @@ Phases, each fatal (exit code 1, no result line) when it fails:
 4. main path (CSR kernel): the flat experiment's ``run`` (``Trainer.fit`` with
    an eval every epoch, ``evaluate``, the results row) on the CSR kernel
    plan. The kernel's launch count must rise by exactly 4 per train step
-   plus 2 per forward-only pass; losses must be finite and falling, and the
+   plus 2 per forward-only pass, and ``Adam.launches`` (``csrc/adam.cu``)
+   by exactly 1 per train step; losses must be finite and falling, and the
    model's logits must agree with the plain aggregation path.
 5. hybrid plan: the dense-hot/sparse-cold decomposition of the same graph
    at K = 4096, f32 'split2' (D as a bf16 hi/lo pair); print K, the
@@ -61,8 +62,11 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    and split variants' timing builds beside them, in turns (what limits
    them);
    the hybrid SpMM per application; train steps on the CSR, hybrid and
-   plain paths; peak memory; and the split kernel at K = 1024, 2048 and
-   4096.
+   plain paths; the fused Adam (``optimizer_times``) at EGCN's, GCN's and
+   the ensemble's parameter sets, bit for bit against torch's foreach step
+   over 3 steps, its device time a step beside the foreach step's, torch's
+   fused Adam's and its bytes bound; peak memory; and the split kernel at
+   K = 1024, 2048 and 4096.
 10. models and hierarchies, on the CSR kernel and phase 2's graph at full
    width, ``MODEL_EPOCHS`` epochs each: the flat experiment with EGCN
    (embedding 2000, hidden 100) and with the JK network (hidden 100), the
@@ -72,7 +76,8 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    them back, which must give the same predictions; the per-level and
    per-label runs must each write their results row. On each path the
    kernel must launch exactly 4 times per train step plus 2 per
-   forward-only pass of every level or member, each loss must be finite
+   forward-only pass of every level or member, Adam's kernel once per
+   train step of every level or member, each loss must be finite
    and fall (a member with one class has a loss of exactly 0), and the
    kernel must match its plain version at every width the path ran; each
    path's train step time and peak memory are printed. Composed per-label
@@ -91,7 +96,8 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    one measured: the chosen K must time within 10% of the fastest) and the
    flat experiment with ``--train-hybrid-k auto``; the restricted chooser
    the same way at H = 43; the per-label experiment with ``--train-ep``
-   (one launch of width 6 x 100 per application, counts exact), its
+   (one launch of width 6 x 100 per application, counts exact; Adam's
+   kernel once a batched step), its
    members against six sequential ones from the same initialization at
    dropout 0 (rtol 2e-4, atol 2e-5), its step against the six sequential
    steps; the CSR kernel at H = 600 against its plain version; and the
@@ -329,6 +335,104 @@ def time_spmm_builds(kernel, builds: dict, plans: dict, widths, gen, reps: int =
     return rows
 
 
+def kernel_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Device time of the kernels ``fn`` launches, per call: their sum in a
+    ``torch.profiler`` trace of ``reps`` calls, whatever the host's pace."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+
+
+def adam_sets(n: int) -> dict:
+    """The main path's optimizer parameter sets at N = ``n`` nodes and 43
+    classes, by cell: shapes, and whether the step is AMSGrad. The ensemble
+    is the six per-label members stacked (``hierarchy/perlabel.py``), their
+    class count padded to 16."""
+    return {"egcn": ([(n, 2000), (2000,), (2000, 100), (100,), (100, 43), (43,)], True),
+            "gcn": ([(n, 100), (100,), (100, 43), (43,)], True),
+            "ensemble": ([(n, 6, 100), (6, 100), (6, 100, 16), (6, 16)], False)}
+
+
+def optimizer_times(n: int, dev, reps: int = 20) -> list:
+    """Per parameter set of :func:`adam_sets`: the port's Adam
+    (``train/optim.py::Adam``, the kernel ``csrc/adam.cu``) against torch's
+    foreach step (its plain version) bit for bit over 3 steps from the same
+    state, then the ms a step of the kernel, of the foreach step and of
+    ``torch.optim.Adam(fused=True)`` (the library, used nowhere in the
+    port), in turns, beside the bytes bound: 36 bytes a parameter for
+    AMSGrad, 28 for Adam (p, g, m, v and v_max read, all but g written), over
+    3.35 TB/s. Each time is the device time of a step's kernels
+    (:func:`kernel_ms`); beside it the host's own time a step, which the
+    kernels run behind."""
+    import torch
+
+    from pytextgcn_tpu_torch.train.optim import Adam
+
+    rows = []
+    for name, (shapes, amsgrad) in adam_sets(n).items():
+        gen = torch.Generator(device=dev).manual_seed(5)
+        params = [torch.nn.Parameter(torch.randn(s, device=dev, generator=gen))
+                  for s in shapes]
+        twins = [torch.nn.Parameter(p.detach().clone()) for p in params]
+        ours = Adam(params, lr=0.05, amsgrad=amsgrad)
+        plain = torch.optim.Adam(twins, lr=0.05, amsgrad=amsgrad, foreach=True)
+        launches = Adam.launches
+        for _ in range(3):
+            for p, q in zip(params, twins):
+                p.grad = torch.randn(p.shape, device=dev, generator=gen)
+                q.grad = p.grad.clone()
+            ours.step()
+            plain.step()
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                      for p, q in zip(params, twins)
+                      for x, y in [(p.detach(), q.detach())] + [
+                          (ours.state[p][k], plain.state[q][k]) for k in ours.state[p]])
+        if not bitwise or Adam.launches - launches != 3:
+            fail(f"adam {name}: bit for bit {bitwise}, launches {Adam.launches - launches}")
+        del plain, twins
+        torch.cuda.empty_cache()
+        steps = {"kernel": ours.step,
+                 "plain": torch.optim.Adam(params, lr=0.05, amsgrad=amsgrad, foreach=True).step,
+                 "library": torch.optim.Adam(params, lr=0.05, amsgrad=amsgrad,
+                                             fused=True).step}
+        times = {k: [] for k in steps}
+        for k in list(steps) + list(steps)[::-1]:
+            times[k].append(kernel_ms(steps[k], reps))
+        host = {}
+        for k, fn in steps.items():  # the host's own time a step: the kernels run behind
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host[k] = (time.perf_counter() - t0) / reps * 1e3
+            torch.cuda.synchronize()
+        numel = sum(p.numel() for p in params)
+        n_bytes = numel * (36 if amsgrad else 28)
+        row = {"set": name, "amsgrad": amsgrad, "numel": numel, "tensors": len(shapes),
+               "bytes": n_bytes, "bound_ms": n_bytes / spec_peak("hbm_gbps") * 1e3,
+               "bound_by": "bytes", "bitwise_3_steps": bitwise,
+               **{f"{k}_ms": sum(v) / len(v) for k, v in times.items()},
+               "turns_ms": times, "host_ms": host}
+        log(f"  adam {name} ({'AMSGrad' if amsgrad else 'Adam'}, {numel / 1e6:.2f}M "
+            f"parameters in {len(shapes)} tensors): kernel {row['kernel_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms by bytes ({n_bytes / 1e9:.3f} GB), foreach "
+            f"{row['plain_ms']:.4f} ms, fused {row['library_ms']:.4f} ms (device time); "
+            f"the host's time a step {host['kernel']:.4f} / {host['plain']:.4f} / "
+            f"{host['library']:.4f} ms; bit for bit with foreach over 3 steps")
+        rows.append(row)
+        del steps, ours, params
+        torch.cuda.empty_cache()
+    return rows
+
+
 def compare(name: str, got, want, scale, rtol: float, atol: float = ATOL) -> float:
     """Fails unless ``|got - want| <= atol + rtol * scale`` everywhere."""
     import torch
@@ -522,15 +626,18 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
     mask_dev = torch.as_tensor(g.train_mask, device=dev)
     paths, widths_run = {}, set()
 
-    def record(name, trainers, secs, counts, expected, peak_gb, summary, timed):
-        """Checks the path's launch count, notes its widths, and times a
-        train step of ``timed`` (one of its trainers; None: no timing)."""
-        if counts["csr"] != expected or counts["dual"]:
-            fail(f"{name}: launches {counts}, expected {expected} CSR launches")
+    def record(name, trainers, secs, counts, expected, steps, peak_gb, summary, timed):
+        """Checks the path's launch counts (``expected`` CSR launches, one of
+        Adam for each of its ``steps`` optimizer steps), notes its widths,
+        and times a train step of ``timed`` (one of its trainers; None: no
+        timing)."""
+        if counts["csr"] != expected or counts["dual"] or counts["adam"] != steps:
+            fail(f"{name}: launches {counts}, expected {expected} CSR launches and {steps} "
+                 "of Adam")
         widths = sorted({layer.w.shape[1] for t in trainers for layer in t.model.layers})
         widths_run.update(widths)
-        entry = {"seconds": secs, "launches": counts["csr"], "widths": widths,
-                 "peak_memory_gb": peak_gb}
+        entry = {"seconds": secs, "launches": counts["csr"], "adam_launches": counts["adam"],
+                 "widths": widths, "peak_memory_gb": peak_gb}
         timing = ""
         if timed is not None:
             step = lambda: timed._train_step(timed._adj, timed._feats, y0, mask_dev)
@@ -543,8 +650,8 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
                 timing += f", device busy {entry['device_busy_ms']:.3f}"
             timing += ")"
         paths[name] = entry
-        log(f"  {name} in {secs:.1f}s: CSR launches {counts['csr']} (expected {expected}); "
-            f"{summary}; widths {widths}{timing}; peak memory {peak_gb:.2f} GB above what "
+        log(f"  {name} in {secs:.1f}s: CSR launches {counts['csr']} (expected {expected}), Adam "
+            f"launches {counts['adam']} (expected {steps}); {summary}; widths {widths}{timing}; peak memory {peak_gb:.2f} GB above what "
             "was held before it")
 
     # EGCN at the protocols' lr 0.05 first climbs (Adam moves every embedding
@@ -561,7 +668,7 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
             fail(f"egcn: embedding {tuple(model.embed.w.shape)}, expected ({n}, 2000)")
         loss = check_losses(model_name, res["history"], n_classes)
         record(f"{model_name} flat", [res["trainer"]], secs, counts,
-               passes(res["history"]) + 2, peak,
+               passes(res["history"]) + 2, len(res["history"]), peak,
                f"loss {loss}, test acc {res['accuracy']:.4f}, macro-F1 {res['f1_macro']:.4f}",
                res["trainer"])
         del res, model
@@ -577,7 +684,8 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
         fail("per-level: level 2 does not carry the Cat1 columns")
     # each level's fit, level 1's softmax on its own graph, the final evaluation
     record("gcn per-level", res["trainers"], secs, counts,
-           sum(passes(h) for h in res["histories"]) + 2 + 2, peak,
+           sum(passes(h) for h in res["histories"]) + 2 + 2,
+           sum(len(h) for h in res["histories"]), peak,
            f"losses {losses}, test acc {res['accuracy']:.4f}, macro-F1 {res['f1_macro']:.4f}",
            res["trainers"][-1])  # level 2: the Cat2 head on the Cat1 columns
     del res
@@ -593,14 +701,15 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
                   for c, (h, size) in enumerate(zip(res["histories"], sizes))]
         # composed inference runs the six members as one batched pass: 2 launches
         record("gcn per-label", res["trainers"], secs, counts,
-               sum(passes(h) for h in res["histories"]) + 2, peak,
+               sum(passes(h) for h in res["histories"]) + 2,
+               sum(len(h) for h in res["histories"]), peak,
                f"6 members of {sizes} classes, losses {losses}, test acc "
                f"{res['accuracy']:.4f}, macro-F1 {res['f1_macro']:.4f}",
                res["trainers"][int(np.argmax(sizes))])  # the member with the most classes
         back, secs, counts, peak = drive(perlabel.run, pcfg, g, cat1, cat2, eval_only=True)
         if not np.array_equal(back["predictions"], res["predictions"]):
             fail("per-label --eval-only: predictions differ from the trained ensemble's")
-        record("gcn per-label --eval-only", back["trainers"], secs, counts, 2, peak,
+        record("gcn per-label --eval-only", back["trainers"], secs, counts, 2, 0, peak,
                f"{len(os.listdir(models_dir))} files read back, the same predictions, test "
                f"acc {back['accuracy']:.4f}", None)
         del res, back
@@ -968,10 +1077,12 @@ def operator_options(args, card, g, n_classes: int, hidden: int, adj, counters, 
     want = {(n, n, width): 2 * e_steps + 1, (n, n, 6 * c_max): 2 * e_steps + 1}
     log(f"  per-label --train-ep in {esecs:.1f}s: 6 members of {sizes} classes; CSR launches "
         f"by (rows, cols, H) {ecounts['csr_shapes']} (expected {want}: one launch of width "
-        f"6 x {hidden} per application); test acc {eres['accuracy']:.4f}, macro-F1 "
+        f"6 x {hidden} per application), Adam launches {ecounts['adam']} (expected {e_steps}: "
+        f"one a batched step); test acc {eres['accuracy']:.4f}, macro-F1 "
         f"{eres['f1_macro']:.4f}")
-    if len(sizes) != 6 or ecounts["csr_shapes"] != want or ecounts["dual"]:
-        fail(f"per-label --train-ep: launches {ecounts}, expected {want}")
+    if (len(sizes) != 6 or ecounts["csr_shapes"] != want or ecounts["dual"]
+            or ecounts["adam"] != e_steps):
+        fail(f"per-label --train-ep: launches {ecounts}, expected {want} and {e_steps} of Adam")
     for c, h in enumerate(eres["histories"]):
         losses = [r["loss"] for r in h]
         if len(losses) != epochs or not np.isfinite(losses).all() or (
@@ -1010,6 +1121,7 @@ def operator_options(args, card, g, n_classes: int, hidden: int, adj, counters, 
         for t, (_, yn, nm) in zip(seq_run["trainers"], members)]
     ep = {"seconds": esecs, "sizes": sizes,
           "launches": {str(k): v for k, v in ecounts["csr_shapes"].items()},
+          "adam_launches": ecounts["adam"],
           "step_ms": ep_ms, "sequential_step_ms": seq_ms, "max_abs_err_vs_sequential": ep_err}
     timing = ""
     if args.profile:
@@ -3248,6 +3360,7 @@ def main(argv=None) -> int:
     from pytextgcn_tpu_torch.ops.hybrid import spmm_hybrid
     from pytextgcn_tpu_torch.ops.spmm import spmm, spmm_segment
     from pytextgcn_tpu_torch.train import Trainer
+    from pytextgcn_tpu_torch.train import optim
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3256,6 +3369,7 @@ def main(argv=None) -> int:
     plain = spmm_cuda.spmm_csr_reference
     mag = spmm_cuda.spmm_csr_abs
     dual = fd.fused_dual_kernel
+    adam_lib = optim._ADAM_LIB
     t_start = time.perf_counter()
 
     # ------------------------------------------------------------ 1. build
@@ -3274,7 +3388,8 @@ def main(argv=None) -> int:
     csr_timing = {name: spmm_cuda.SpmmCsrKernel(flags, "_" + name)
                   for name, (flags, _) in CSR_TIMING_BUILDS.items()}
     with ThreadPoolExecutor(10) as pool:
-        builds = [pool.submit(kernel.build, True), pool.submit(dual.build, True)]
+        builds = [pool.submit(kernel.build, True), pool.submit(dual.build, True),
+                  pool.submit(adam_lib.build, True)]
         timing_builds = [pool.submit(v.build)
                          for v in (*f32_timing.values(), split_1pass, hot_float4,
                                    *csr_timing.values())]
@@ -3283,7 +3398,7 @@ def main(argv=None) -> int:
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/17] built the two CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
+    log(f"[1/17] built the three CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
         f"kernel, four of the dual kernel) and the native library in "
         f"{time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
@@ -3357,10 +3472,11 @@ def main(argv=None) -> int:
         "csr": (lambda: setattr(kernel, "launches", 0), lambda: kernel.launches),
         "csr_shapes": (lambda: setattr(kernel, "shapes", {}), lambda: dict(kernel.shapes)),
         "dual": (lambda: setattr(dual, "launches", {}), lambda: dict(dual.launches)),
+        "adam": (lambda: setattr(optim.Adam, "launches", 0), lambda: optim.Adam.launches),
     }
     torch.cuda.reset_peak_memory_stats()
     res, main_s, counts = run_path(flat, cfg, g, n_classes, counters)
-    launches = counts["csr"]
+    launches, adam_launches = counts["csr"], counts["adam"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res["history"]
     steps = len(hist)
@@ -3368,12 +3484,14 @@ def main(argv=None) -> int:
     expected = 4 * steps + 2 * evals
     losses = [rec["loss"] for rec in hist]
     log(f"[4/17] main path in {main_s:.1f}s: {steps} train steps, {evals} forward-only "
-        f"passes, kernel launches {launches} (expected {expected}); loss "
+        f"passes, kernel launches {launches} (expected {expected}), Adam launches "
+        f"{counts['adam']} (expected {steps}); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; test acc {res['accuracy']:.4f}, "
         f"macro-F1 {res['f1_macro']:.4f}; peak memory {peak_gb:.2f} GB")
     log(f"  results row: {res['row']}")
-    if launches != expected or counts["dual"]:
-        fail(f"the main path launched the kernels {counts}, expected {expected} CSR launches")
+    if launches != expected or counts["dual"] or counts["adam"] != steps:
+        fail(f"the main path launched the kernels {counts}, expected {expected} CSR launches "
+             f"and {steps} of Adam")
     if steps != args.epochs or not np.isfinite(losses).all():
         fail(f"training: {steps} steps, losses {losses}")
     if not losses[-1] < losses[0]:
@@ -3757,6 +3875,7 @@ def main(argv=None) -> int:
     log(f"  train step (forward, loss, backward, Adam): CSR kernel path "
         f"{step_ms['kernel']:.3f} ms, hybrid path (K={HOT_K}) {step_ms['hybrid']:.3f} ms, "
         f"plain path {step_ms['plain']:.3f} ms (host clock, 20 steps)")
+    adam_rows = optimizer_times(n, dev)
 
     # ------------------------------------------------------------ 10. models, hierarchies
     paths, widths_run, width_errs, width_times, (cat1, cat2) = models_and_hierarchies(
@@ -3914,6 +4033,17 @@ def main(argv=None) -> int:
          "per_rank_d_block": [r for r in rank_rows["dual"] if r["variant"] == "bf16"]},
         dual_entry("f32_t", "pytextgcn_tpu/ops/fused_dual.py:159",
                    "fused_dual_t forward and backward on the main path's D at both widths"),
+        {"name": "adam", "route": "cuda", "source": "pytextgcn_tpu_torch/csrc/adam.cu",
+         "replaces": "none: torch.optim.Adam's foreach step (the JAX package leaves its "
+                     "update to XLA)",
+         "launches": adam_launches,
+         "launches_models_hierarchies": {k: v["adam_launches"] for k, v in paths.items()},
+         "launches_ep": options["ep"]["adam_launches"],
+         "ms": adam_rows[0]["kernel_ms"], "plain_ms": adam_rows[0]["plain_ms"],
+         "library_ms": adam_rows[0]["library_ms"], "bound_ms": adam_rows[0]["bound_ms"],
+         "bound_by": "bytes",
+         "ms_averages": "a step at EGCN's parameter set; by_set has GCN's and the ensemble's",
+         "by_set": adam_rows},
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,7 +7,8 @@ the 'reference' / 'val_f1' early-stopping rules and ``start_epoch``,
 ``share_adjacency``. A train step is forward, masked
 cross-entropy, backward and an optimizer step; the default optimizer is
 ``torch.optim.Adam(amsgrad=True)``, the reference's update rule
-(flat_amazon.py:89).
+(flat_amazon.py:89), as ``train/optim.py::Adam``, whose step on the card
+is one hand-written kernel.
 
 With ``use_pallas`` (the default here) the aggregation runs in the
 hand-written CSR kernel: 2 launches per forward pass and 2 more in the

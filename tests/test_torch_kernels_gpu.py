@@ -1,5 +1,5 @@
-"""The CUDA kernels (the CSR SpMM, the dual product) against their plain
-versions, on the card.
+"""The CUDA kernels (the CSR SpMM, the dual product, Adam) against their
+plain versions, on the card.
 
 Marked ``gpu``: each test skips, with its reason, when no CUDA device is
 present (decided in the fixture, at run time). On a machine with the card
@@ -9,6 +9,7 @@ marker registered on the command line):
 tests/test_torch_kernels_gpu.py -q``.
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -19,6 +20,7 @@ from pytextgcn_tpu_torch.core.graph import TextGraph
 from pytextgcn_tpu_torch.models import GCN
 from pytextgcn_tpu_torch.ops import NormAdj, NodeFeatures
 from pytextgcn_tpu_torch.ops import spmm_cuda
+from pytextgcn_tpu_torch.train.optim import Adam
 
 pytestmark = pytest.mark.gpu
 
@@ -938,3 +940,161 @@ def test_dp_mlp_step_on_card_matches_cpu(cuda):
     np.testing.assert_allclose([l for l, _ in hg], [l for l, _ in hc], rtol=1e-5)
     for a, b in zip(mg.parameters(), mc.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=1e-5)
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, a NaN for a NaN."""
+    a, b = a.detach().contiguous(), b.detach().contiguous()
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+
+def _adam_twins(shapes, dev, amsgrad, seed, unaligned=True, kinds=(Adam, torch.optim.Adam),
+                **kw):
+    """Two optimizers of ``kinds`` (the port's Adam, torch's foreach Adam),
+    each over its own copy of the same parameters: one of each shape and,
+    with ``unaligned``, a 4099-element view 4 bytes off 16-byte alignment."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p0 = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+    ours = [torch.nn.Parameter(t.clone()) for t in p0]
+    if unaligned:
+        buf = torch.randn(4100, device=dev, generator=gen)
+        ours.append(torch.nn.Parameter(buf[1:]))
+        assert ours[-1].data_ptr() % 16 and ours[-1].is_contiguous()
+    theirs = [torch.nn.Parameter(p.detach().clone()) for p in ours]
+    return gen, ours, theirs, tuple(
+        kind(ps, lr=0.05, amsgrad=amsgrad, **kw, **({"foreach": True} if kind is not Adam else {}))
+        for kind, ps in zip(kinds, (ours, theirs)))
+
+
+def _adam_grads(gen, ours, theirs, nan=False, skip=None):
+    """The same gradients on both sides, each over four decades (an
+    unaligned parameter's gradient is unaligned too); with ``nan``, every
+    97th element of each NaN; the parameter at index ``skip`` gets none
+    (``.grad`` None)."""
+    for i, (p, q) in enumerate(zip(ours, theirs)):
+        g = torch.randn(p.shape, device=p.device, generator=gen)
+        g *= 10.0 ** float(torch.empty(()).uniform_(-3, 1))
+        if nan:
+            g.view(-1)[::97] = float("nan")
+        if i == skip:
+            p.grad = q.grad = None
+        elif p.data_ptr() % 16:
+            buf = torch.empty(p.numel() + 1, device=p.device)
+            p.grad = buf[1:].view(p.shape).copy_(g)
+            q.grad = g
+        else:
+            p.grad = g.clone()
+            q.grad = g
+
+
+def _assert_adam_same(a, ours, b, theirs):
+    for p, q in zip(ours, theirs):
+        assert _same_bits(p, q)
+        assert a.state[p].keys() == b.state[q].keys()
+        for k in a.state[p]:
+            assert _same_bits(a.state[p][k], b.state[q][k]), k
+
+
+@pytest.mark.parametrize("steps", [1, 7, 100])
+@pytest.mark.parametrize("amsgrad", [True, False], ids=["amsgrad", "adam"])
+def test_adam_kernel_equals_torch_foreach_bit_for_bit(cuda, amsgrad, steps):
+    """Sizes 1, 7, 4k + 3, 2-D and 3-D, a parameter off 16-byte alignment
+    (the scalar path), a NaN gradient on one step, the 4099-element
+    parameter without a gradient every third step (its own step count);
+    parameters and state equal to the foreach step's bit for bit after
+    ``steps`` steps."""
+    shapes = [(1,), (7,), (4099,), (1000, 43), (2000, 100), (100,), (3, 5, 7)]
+    gen, ours, theirs, (a, b) = _adam_twins(shapes, cuda, amsgrad, seed=steps)
+    for step in range(1, steps + 1):
+        _adam_grads(gen, ours, theirs, nan=step == min(steps, 5),
+                    skip=2 if step % 3 == 0 else None)
+        a.step()
+        b.step()
+    torch.cuda.synchronize()
+    assert any(p.isnan().any() for p in ours)
+    assert int(a.state[ours[2]]["step"]) == steps - steps // 3
+    _assert_adam_same(a, ours, b, theirs)
+
+
+@pytest.mark.parametrize("betas", [(0.5, 0.999), (0.2, 0.9)])
+@pytest.mark.parametrize("amsgrad", [True, False], ids=["amsgrad", "adam"])
+def test_adam_kernel_takes_lerp_s_other_branch(cuda, amsgrad, betas):
+    """With ``1 - beta1 >= 0.5`` ATen's lerp_ computes ``g - (g - m) * beta1``;
+    so does the kernel, bit for bit over 7 steps."""
+    gen, ours, theirs, (a, b) = _adam_twins([(7,), (4099,), (300, 43)], cuda, amsgrad,
+                                            seed=11, betas=betas)
+    for _ in range(7):
+        _adam_grads(gen, ours, theirs)
+        a.step()
+        b.step()
+    torch.cuda.synchronize()
+    _assert_adam_same(a, ours, b, theirs)
+
+
+@pytest.mark.parametrize("amsgrad", [True, False], ids=["amsgrad", "adam"])
+@pytest.mark.parametrize("direction", ["to_torch", "from_torch"])
+def test_adam_state_dict_round_trips_with_torch_adam(cuda, amsgrad, direction):
+    """Three steps on one side, its state dict loaded into the other kind
+    over copied parameters, then both step on together bit for bit: the
+    kernel's state is torch's, both ways."""
+    kinds = (Adam, torch.optim.Adam) if direction == "to_torch" else (torch.optim.Adam, Adam)
+    gen, first, second, (a, b) = _adam_twins([(7,), (4099,), (300, 43)], cuda, amsgrad,
+                                             seed=13, kinds=kinds)
+    for _ in range(3):
+        _adam_grads(gen, first, second)
+        a.step()
+    with torch.no_grad():
+        for p, q in zip(first, second):
+            q.copy_(p)
+    b.load_state_dict(copy.deepcopy(a.state_dict()))
+    assert b.state_dict()["param_groups"] == a.state_dict()["param_groups"]
+    _assert_adam_same(a, first, b, second)
+    for _ in range(5):
+        _adam_grads(gen, first, second)
+        a.step()
+        b.step()
+    torch.cuda.synchronize()
+    _assert_adam_same(a, first, b, second)
+
+
+def test_adam_kernel_on_a_156m_element_tensor(cuda):
+    """EGCN's embedding, ``[77,923, 2000]``: three AMSGrad steps."""
+    gen, ours, theirs, (a, b) = _adam_twins([(77_923, 2000)], cuda, True, seed=3,
+                                            unaligned=False)
+    for _ in range(3):
+        _adam_grads(gen, ours, theirs)
+        a.step()
+        b.step()
+    torch.cuda.synchronize()
+    _assert_adam_same(a, ours, b, theirs)
+
+
+@pytest.mark.parametrize("n_params,per_step", [(6, 1), (50, 2)])
+def test_adam_launches_once_a_step(cuda, n_params, per_step):
+    """One launch a step over the step's tensors; a second past a table of
+    48."""
+    params = [torch.nn.Parameter(torch.randn(5 + i, device=cuda)) for i in range(n_params)]
+    opt = Adam(params, lr=0.05, amsgrad=True)
+    n0 = Adam.launches
+    for _ in range(3):
+        for p in params:
+            p.grad = torch.randn_like(p)
+        opt.step()
+    assert Adam.launches - n0 == 3 * per_step
+
+
+@pytest.mark.parametrize("case", ["float64", "bfloat16", "strided", "weight_decay", "capture"])
+def test_adam_raises_on_what_the_kernel_does_not_take(cuda, case):
+    dtype = {"float64": torch.float64, "bfloat16": torch.bfloat16}.get(case, torch.float32)
+    base = torch.randn(8, 6, device=cuda, dtype=dtype)
+    p = torch.nn.Parameter(base.t() if case == "strided" else base)
+    opt = Adam([p], lr=0.05, amsgrad=True, weight_decay=0.1 if case == "weight_decay" else 0)
+    p.grad = torch.randn_like(p)
+    if case == "capture":  # its bias corrections are host scalars, as torch's own step's
+        with pytest.raises(RuntimeError, match="cannot be captured"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                opt.step()
+        return
+    error = TypeError if case in ("float64", "bfloat16") else ValueError
+    with pytest.raises(error):
+        opt.step()

@@ -1,11 +1,13 @@
-"""The port's optimizers against optax: ``'optax_amsgrad'``
+"""The port's optimizers against optax and torch: ``'optax_amsgrad'``
 (``train/optim.py::OptaxAmsgrad``) against ``optax.amsgrad`` update for
 update over 25 steps (1e-6 relative to each parameter's magnitude; its bias
 corrections are formed in float32 as optax forms them), and ``'adam'``
 (torch's plain Adam) against ``optax.adam`` within 2e-5 of the distance
 travelled (torch divides by ``sqrt(1 - b2^t)`` outside the square root,
 optax inside: the two round differently, about 1e-6 relative a step;
-plus 1e-6 of the parameter, its last bits)."""
+plus 1e-6 of the parameter, its last bits). ``resolve_optimizer`` hands
+out the port's :class:`Adam` for ``None``, ``'amsgrad'``,
+``'torch_amsgrad'`` and ``'adam'``; on the CPU its step is torch's own."""
 
 import copy
 
@@ -15,7 +17,7 @@ import optax
 import pytest
 import torch
 
-from pytextgcn_tpu_torch.train.optim import OptaxAmsgrad, resolve_optimizer
+from pytextgcn_tpu_torch.train.optim import Adam, OptaxAmsgrad, resolve_optimizer
 
 
 def _run(name, ref, lr, shapes, steps=25, seed=0):
@@ -79,3 +81,37 @@ def test_optax_amsgrad_state_round_trips():
     opt.step()
     opt2.step()
     assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("name,amsgrad", [(None, True), ("amsgrad", True),
+                                          ("torch_amsgrad", True), ("adam", False)])
+def test_resolve_optimizer_gives_the_port_s_adam(name, amsgrad):
+    opt = resolve_optimizer(name, [torch.nn.Parameter(torch.ones(3))], 0.05)
+    assert type(opt) is Adam and isinstance(opt, torch.optim.Adam)
+    assert type(opt).__name__ == "Adam"  # torch's profiler range: Optimizer.step#Adam.step
+    (group,) = opt.param_groups
+    assert group["amsgrad"] is amsgrad and group["lr"] == 0.05
+    assert group["betas"] == (0.9, 0.999) and group["eps"] == 1e-8
+    assert group["weight_decay"] == 0 and not group["maximize"]
+
+
+def test_adam_on_the_cpu_is_torch_s_step():
+    """Parameters on the CPU take ``torch.optim.Adam``'s own step and no
+    launch; what the kernel computes is held to torch's foreach step on the
+    card (tests/test_torch_kernels_gpu.py)."""
+    rng = np.random.default_rng(0)
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in [(7,), (3, 5)]]
+    ours = [torch.nn.Parameter(torch.tensor(p)) for p in p0]
+    theirs = [torch.nn.Parameter(torch.tensor(p)) for p in p0]
+    a = resolve_optimizer("amsgrad", ours, 0.05)
+    b = torch.optim.Adam(theirs, lr=0.05, amsgrad=True)
+    launches = Adam.launches
+    for _ in range(3):
+        for p, q in zip(ours, theirs):
+            p.grad = torch.tensor(rng.standard_normal(p.shape).astype(np.float32))
+            q.grad = p.grad.clone()
+        a.step()
+        b.step()
+    assert Adam.launches == launches
+    for p, q in zip(ours, theirs):
+        assert torch.equal(p, q)
