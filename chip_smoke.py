@@ -1221,7 +1221,7 @@ def ep_against_sequential(name: str, g, cat1, cat2, zcfg, epochs: int, dev):
                         device=dev) for classes, _, _ in members]
     adj, feats = trainers[0].prepare(g)
     for t in trainers[1:]:
-        t._adj, t._adj_key, t._feats = trainers[0]._adj, trainers[0]._adj_key, feats
+        t.adopt(adj, g, feats)
     problems, histories, excluded, held_err = [], [], {}, 0.0
     for c, (t, te, (_, yn, nm)) in enumerate(zip(trainers, ep_run["trainers"], members)):
         y = torch.as_tensor(yn, dtype=torch.int64, device=dev)
@@ -2120,9 +2120,10 @@ def train_step_fn(trainer, g):
     adj, feats = trainer.prepare(g)
     y = trainer._local(trainer._tensor(g.y, torch.int64))
     mask = trainer._local(trainer._tensor(g.train_mask))
-    denom = global_count(mask, trainer._group()) if trainer.halo else None
+    agg = trainer.aggregation
+    denom = global_count(mask, agg.group) if agg.halo else None
     adj_out = trainer._prepare_restricted(g) if trainer.masked_head else None
-    if adj_out is not None and trainer.mesh is None:  # one device: the train rows only
+    if adj_out is not None and agg.mesh is None:  # one device: the train rows only
         y = y.index_select(0, adj_out.rows)
         mask = torch.ones(adj_out.m, dtype=torch.bool, device=trainer.device)
     return lambda: trainer._train_step(adj, feats, y, mask, adj_out, denom=denom)

@@ -107,7 +107,8 @@ def run(cfg, g, n_classes):
         print(cm.cpu().numpy())
     if cfg.save_model:
         trainer.save(cfg.save_model, epoch=len(history))  # rank 0 writes
-    if cfg.result_file and (trainer.mesh is None or trainer.mesh.rank == 0):
+    mesh = trainer.aggregation.mesh
+    if cfg.result_file and (mesh is None or mesh.rank == 0):
         append_result(
             cfg.result_file,
             seed=cfg.train.seed,

@@ -39,7 +39,6 @@ import torch
 from ..core.graph import TextGraph
 from ..models import EGCN, GCN, JumpingKnowledgeNetwork, export_params
 from ..models.layers import dropout, stacked_bilstm
-from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
 from ..ops.spmm import spmm
 from ..parallel.sharded import Mesh, all_gather_rows
@@ -375,14 +374,11 @@ class Ensemble:
         self.mine = [i for i in range(rank * self.m_local, (rank + 1) * self.m_local)
                      if i < len(models)]
         n_dummy = self.m_local - len(self.mine)
-        self.adj = NormAdj.from_graph(
-            g, use_pallas=lead.use_pallas, pallas_dtype=lead.pallas_dtype, device=dev,
-            hybrid_k=lead.hybrid_k, hybrid_fused=lead.hybrid_fused,
-            hybrid_f32_mode=lead.hybrid_f32_mode, hybrid_batch=self.m_local,
-            h_hint=models[0].n_hidden, plan_cache=lead.plan_cache)
+        self.adj = lead.aggregation.operator(g, dev, h_hint=models[0].n_hidden,
+                                             batch=self.m_local)
         self.feats = NodeFeatures.from_graph(g, device=dev)
         for t in self.trainers:  # the members adopt the operator
-            t._adj, t._adj_key, t._feats = self.adj, (g.edge_src, g.edge_w, g.n_nodes), self.feats
+            t.adopt(self.adj, g, self.feats)
 
         # this rank's block; a dummy repeats member 0 and trains on no row
         self.c_local = [self.c_list[i] for i in self.mine] + [self.c_list[0]] * n_dummy

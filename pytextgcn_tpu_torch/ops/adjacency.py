@@ -16,9 +16,9 @@ import torch
 from ..core.graph import TextGraph, gcn_normalize_np
 from ..train.profiling import stage
 from ..utils import resolve_device
-from .hybrid import HybridPlan, build_hybrid_plan
+from .hybrid import HybridPlan, build_hybrid_plan, segment_sum, spmm_hybrid
 from .plan_cache import load_or_build
-from .spmm_cuda import SpmmPlan, build_plan_from_arrays
+from .spmm_cuda import SpmmPlan, build_plan_from_arrays, spmm_plan
 
 
 @dataclasses.dataclass
@@ -27,8 +27,8 @@ class NormAdj:
     as tensors on one device.
 
     ``plan`` optionally holds the CSR kernel plan (:mod:`.spmm_cuda`) or a
-    hybrid plan (:mod:`.hybrid`); when present the SpMM runs through it,
-    otherwise through the plain gather + ``index_add_`` path
+    hybrid plan (:mod:`.hybrid`); when present :meth:`apply` runs through
+    it, otherwise through the plain gather + ``index_add_`` path
     (:func:`.spmm.spmm_segment`).
     """
 
@@ -38,6 +38,19 @@ class NormAdj:
     self_w: torch.Tensor  # float32 [N]
     n_nodes: int
     plan: Optional[Union[SpmmPlan, HybridPlan]] = None
+    row_block = None  # activations are whole (ops/spmm.py::row_block)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """``A_hat @ x`` on the plan (the CSR kernel's through its autograd
+        function, which runs the kernel on the transpose plan for the
+        gradient), or on the segment path, the exact oracle."""
+        if isinstance(self.plan, HybridPlan):
+            out = spmm_hybrid(self.plan, x)
+        elif self.plan is not None:
+            out = spmm_plan(self.plan, x)
+        else:
+            out = segment_sum(self.src, self.dst, self.w, x, self.n_nodes)
+        return out + self.self_w[:, None] * x
 
     @staticmethod
     def from_graph(

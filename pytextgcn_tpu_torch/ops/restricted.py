@@ -87,6 +87,10 @@ class RestrictedAdj:
     n_edges: int = 0
     n_resid: int = 0
     floor_spmm_ns: float = 0.0
+    row_block = None  # activations are whole
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return spmm_restricted(self, x)
 
 
 def choose_restricted_k(r_src, n_nodes: int, m: int, h: int = 128, itemsize: int = 4,

@@ -37,11 +37,11 @@ import torch.distributed as dist
 
 from ..core.graph import TextGraph, gcn_normalize_np
 from ..ops.spmm_cuda import _COMPUTE_DTYPES, SpmmPlan, spmm_csr
-from .sharded import Mesh, put_global, rank_plan
+from .sharded import Mesh, RowSharded, put_global, rank_plan
 
 
 @dataclasses.dataclass
-class HaloAdj:
+class HaloAdj(RowSharded):
     """This rank's part of the row-partitioned adjacency with its halo plan.
     Every array equals index ``rank`` of the JAX package's ``[D, ...]`` one.
 
@@ -78,24 +78,12 @@ class HaloAdj:
     wire_rows: int = 0
 
     @property
-    def n_shards(self) -> int:
-        return self.mesh.world_size
-
-    @property
-    def n_pad(self) -> int:
-        return self.rows_per * self.n_shards
-
-    @property
     def comm_rows_per_device(self) -> int:
         """Halo rows each rank sends per SpMM (plan size S per step)."""
         return int(self.send_idx.shape[0] * self.send_idx.shape[1])
 
-    @property
-    def row_block(self) -> Tuple[int, int]:
-        """``(N, first global row of this rank)``: a row-sharded activation
-        draws its rows of the full-shape dropout mask
-        (``models/layers.py::dropout``)."""
-        return self.n_nodes, self.mesh.rank * self.rows_per
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return spmm_halo(self, x)
 
 
 def build_halo_adj(g: TextGraph, mesh: Mesh, axis: str = "graph", use_pallas: bool = False,

@@ -51,11 +51,12 @@ from ..ops.hybrid import (check_weight_symmetric, check_weight_symmetric_fast, c
                           dense_block_device, dense_block_host)
 from ..ops.spmm_cuda import _COMPUTE_DTYPES
 from .halo import HaloAdj, build_halo_core, spmm_halo
-from .sharded import Mesh, all_gather_rows, all_reduce_sum, put_global, replicate_global
+from .sharded import (Mesh, RowSharded, all_gather_rows, all_reduce_sum, put_global,
+                      replicate_global)
 
 
 @dataclasses.dataclass
-class HybridShardedAdj:
+class HybridShardedAdj(RowSharded):
     """This rank's part of the row-partitioned hot/cold decomposition.
     Every array equals index ``rank`` of the JAX package's ``[D, ...]`` one
     (``d_blk`` without the JAX row padding of its fused kernel).
@@ -93,19 +94,6 @@ class HybridShardedAdj:
     wire_rows: int = 0
 
     @property
-    def n_shards(self) -> int:
-        return self.mesh.world_size
-
-    @property
-    def n_pad(self) -> int:
-        return self.rows_per * self.n_shards
-
-    @property
-    def row_block(self) -> Tuple[int, int]:
-        """``(N, first global row of this rank)``, as :class:`HaloAdj`'s."""
-        return self.n_nodes, self.mesh.rank * self.rows_per
-
-    @property
     def comm_rows_per_device(self) -> int:
         """Rows on the wire per SpMM per rank, with the JAX package's ring
         accounting: the hot all_gather moves ``(D-1) * k_max`` rows, the
@@ -114,6 +102,9 @@ class HybridShardedAdj:
         d = self.n_shards
         return ring_gather_rows(d, self.k_max) + ring_reduce_rows(d, self.k) + \
             self.halo_res.comm_rows_per_device
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return spmm_hybrid_sharded(self, x)
 
 
 def ring_gather_rows(world: int, rows: int) -> int:

@@ -32,7 +32,7 @@ it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -43,12 +43,12 @@ from ..ops.spmm_cuda import _COMPUTE_DTYPES
 from .halo import HaloAdj, build_halo_core, spmm_halo
 from .hybrid_sharded import (dense_rows, hot_layout, hot_send_block, ring_gather_rows,
                              scatter_rows, unpack_hot)
-from .sharded import (Mesh, all_gather_rows, all_reduce_sum, local_block, put_global,
-                      replicate_global)
+from .sharded import (Mesh, RowSharded, all_gather_rows, all_reduce_sum, local_block,
+                      put_global, replicate_global)
 
 
 @dataclasses.dataclass
-class RestrictedShardedAdj:
+class RestrictedShardedAdj(RowSharded):
     """This rank's part of the train-row-restricted hot/cold decomposition.
     Every array equals index ``rank`` of the JAX package's ``[D, ...]`` one.
 
@@ -78,22 +78,13 @@ class RestrictedShardedAdj:
     compute_dtype: str = "float32"
 
     @property
-    def n_shards(self) -> int:
-        return self.mesh.world_size
-
-    @property
-    def n_pad(self) -> int:
-        return self.rows_per * self.n_shards
-
-    @property
-    def row_block(self) -> Tuple[int, int]:
-        return self.n_nodes, self.mesh.rank * self.rows_per
-
-    @property
     def comm_rows_per_device(self) -> int:
         """Rows on the wire per restricted SpMM per rank: the hot all_gather
         (ring accounting) plus the residual halo; no reduced partial."""
         return ring_gather_rows(self.n_shards, self.k_max) + self.halo_res.comm_rows_per_device
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return spmm_restricted_sharded(self, x)
 
 
 def build_restricted_sharded_adj(
@@ -248,6 +239,13 @@ class ReplicatedHead:
     rank's rows in, every rank's rows gathered out."""
 
     op: Union[HaloAdj, RestrictedShardedAdj]
+    row_block = None  # activations are replicated
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """The head on replicated ``x`` ``[N, H]``; the result ``[N, H]``,
+        replicated (zero at non-train rows)."""
+        x_own = RowBlockFunction.apply(x, self.op.mesh, self.op.rows_per)
+        return GatherRowsFunction.apply(self.op.apply(x_own), self.op.mesh, self.op.n_nodes)
 
 
 class RowBlockFunction(torch.autograd.Function):
@@ -277,13 +275,3 @@ class GatherRowsFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         return local_block(ctx.mesh, g, ctx.rows_per), None, None
-
-
-def spmm_replicated_head(head: ReplicatedHead, x: torch.Tensor) -> torch.Tensor:
-    """The head on replicated ``x`` ``[N, H]``; the result ``[N, H]``,
-    replicated (zero at non-train rows)."""
-    from ..ops.spmm import spmm  # ops dispatches to parallel
-
-    op = head.op
-    x_own = RowBlockFunction.apply(x, op.mesh, op.rows_per)
-    return GatherRowsFunction.apply(spmm(op, x_own), op.mesh, op.n_nodes)

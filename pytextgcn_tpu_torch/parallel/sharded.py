@@ -130,6 +130,26 @@ def replicate_global(mesh: Mesh, arr) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(np.asarray(arr)), device=mesh.device)
 
 
+class RowSharded:
+    """An operator whose activations are row-sharded (the halo, the sharded
+    hybrid, the sharded masked head): this rank holds ``rows_per`` rows."""
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.world_size
+
+    @property
+    def n_pad(self) -> int:
+        return self.rows_per * self.n_shards
+
+    @property
+    def row_block(self) -> Tuple[int, int]:
+        """``(N, first global row of this rank)``: a row-sharded activation
+        draws its rows of the full-shape dropout mask
+        (``models/layers.py::dropout``)."""
+        return self.n_nodes, self.mesh.rank * self.rows_per
+
+
 @dataclasses.dataclass
 class ShardedAdj:
     """This rank's part of the row-partitioned normalized adjacency.
@@ -165,6 +185,11 @@ class ShardedAdj:
         """Rows each rank receives per SpMM: the all_gather's other blocks
         (ring accounting, as ``hybrid_sharded.ring_gather_rows``)."""
         return (self.mesh.world_size - 1) * self.rows_per
+
+    row_block = None  # activations are replicated
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return spmm_sharded(self, x)
 
 
 def rank_plan(mesh: Mesh, rows, cols, w, n_rows: int, n_cols: int) -> CsrPlan:

@@ -10,12 +10,13 @@ cross-entropy, backward and an optimizer step; the default optimizer is
 (flat_amazon.py:89), as ``train/optim.py::Adam``, whose step on the card
 is one hand-written kernel.
 
-With ``use_pallas`` (the default here) the aggregation runs in the
-hand-written CSR kernel: 2 launches per forward pass and 2 more in the
-backward pass, so 4 per train step and 2 per evaluation. With
-``hybrid_k`` it runs the hybrid decomposition instead, whose dual kernel
-and residual CSR kernel launch that many times each. With ``masked_head``
-the final layer aggregates into the train rows only during ``fit``
+``Aggregation`` chooses and builds the aggregation operator; each operator
+applies itself (ops/spmm.py). With ``use_pallas`` (the default) it runs in
+the hand-written CSR kernel: 2 launches per forward pass and 2 more in the
+backward pass, so 4 per train step and 2 per evaluation. With ``hybrid_k``
+it runs the hybrid decomposition instead, whose dual kernel and residual
+CSR kernel launch that many times each. With ``masked_head`` the final
+layer aggregates into the train rows only during ``fit``
 (ops/restricted.py): 2 of the step's 4 launches then run on the
 restricted plans. With ``debug_checks`` every step checks that the loss,
 each gradient and each parameter are finite, on whichever of these paths
@@ -71,6 +72,7 @@ Each ``fit`` call is the stage ``trainer.fit``; a capture, the stage
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Union
 
@@ -82,8 +84,13 @@ from ..models import JumpingKnowledgeNetwork, export_params, load_jax_params
 from ..models.jk import JK_NO_MASKED_HEAD
 from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
-from ..ops.restricted import RestrictedAdj, build_restricted_adj
+from ..ops.restricted import build_restricted_adj
 from ..ops.spmm_cuda import SpmmPlan
+from ..parallel import (ReplicatedHead, build_halo_adj, build_hybrid_sharded_adj,
+                        build_restricted_sharded_adj, build_sharded_adj)
+from ..parallel.sharded import Mesh, all_gather_rows, local_block
+from ..parallel.tensor import (apply_tp, apply_tp_state, gather_optimizer_state, gather_params,
+                               shard_params, tp_param_shardings)
 from ..utils import resolve_device
 from .checkpoint import load_checkpoint, load_meta, save_checkpoint
 from .graphs import EpochGraphs, hooked
@@ -107,6 +114,94 @@ def dropout_seed(seed: int) -> int:
     return (seed * 0x9E3779B97F4A7C15 + 0x632BE59BD9B4E019) % 2**63
 
 
+@dataclasses.dataclass(frozen=True)
+class Aggregation:
+    """``Trainer``'s operator settings. ``use_pallas``: aggregate through
+    the CSR kernel (else the plain gather/``index_add_`` path).
+    ``pallas_dtype``: the kernel's input dtype, 'float32' or 'bfloat16'
+    (parameters, optimizer and loss stay f32). ``hybrid_k`` /
+    ``hybrid_fused`` / ``hybrid_f32_mode``: the hybrid decomposition
+    (ops/hybrid.py), as ``NormAdj.from_graph`` takes them; 'auto' prices it
+    at the model's hidden width. ``plan_cache``: a directory of persisted
+    plans (ops/plan_cache.py). ``mesh``: a ``parallel.Mesh`` (``make_mesh``)
+    the operator is partitioned over, by 'allgather' or, with ``halo``, by
+    the halo exchange (the sharded hybrid with ``hybrid_k`` besides).
+    Trainers whose values are equal may share one operator
+    (``Trainer.share_adjacency``)."""
+
+    use_pallas: bool = True
+    pallas_dtype: str = "float32"
+    hybrid_k: Optional[Union[int, str]] = None
+    hybrid_fused: Optional[bool] = None
+    hybrid_f32_mode: Optional[str] = None
+    plan_cache: Optional[str] = None
+    mesh: Optional[Mesh] = None
+    halo: bool = False
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            if self.plan_cache is not None:
+                raise ValueError("plan_cache with a mesh: a plan cache holds one device's "
+                                 "operator, which a mesh never builds (ROADMAP.md §1)")
+            if self.hybrid_k is not None and not self.halo:
+                raise ValueError("hybrid_k with the 'allgather' partition: it has no hybrid "
+                                 "form; the sharded hybrid needs halo=True (ROADMAP.md §1)")
+            if self.hybrid_f32_mode == "split2":
+                raise ValueError("hybrid_f32_mode='split2' with a mesh: the sharded hybrid's "
+                                 "f32 products are 'highest' (ROADMAP.md §1)")
+        if self.halo and self.mesh is None:
+            raise ValueError("halo=True needs a mesh")
+
+    @property
+    def group(self):
+        """The process group the metrics and gradients are summed over: the
+        halo mesh's, else None (every rank holds every row)."""
+        return self.mesh.group if self.halo else None
+
+    def operator(self, g: TextGraph, device: torch.device, h_hint: int = 128, batch: int = 1):
+        """The operator over ``g``'s edges; the hybrid's cost model prices
+        ``batch`` members applying it together at width ``h_hint``."""
+        if self.mesh is None:
+            return NormAdj.from_graph(
+                g, use_pallas=self.use_pallas, pallas_dtype=self.pallas_dtype, device=device,
+                hybrid_k=self.hybrid_k, hybrid_fused=self.hybrid_fused,
+                hybrid_f32_mode=self.hybrid_f32_mode, hybrid_batch=batch, h_hint=h_hint,
+                plan_cache=self.plan_cache)
+        if not self.halo:
+            return build_sharded_adj(g, self.mesh, use_pallas=self.use_pallas,
+                                     pallas_dtype=self.pallas_dtype)
+        adj = None
+        if self.hybrid_k is not None:  # None: no hot set, the pure halo
+            adj = build_hybrid_sharded_adj(
+                g, self.mesh, hot_k=self.hybrid_k, compute_dtype=self.pallas_dtype,
+                h_hint=h_hint, fused=self.hybrid_fused, use_pallas=self.use_pallas)
+        if adj is None:
+            adj = build_halo_adj(g, self.mesh, use_pallas=self.use_pallas,
+                                 compute_dtype=self.pallas_dtype)
+        return adj
+
+    def head(self, g: TextGraph, rows: np.ndarray, device: torch.device, out_dim: int):
+        """The masked head's operator into ``rows`` (the train rows), as the
+        JAX trainer builds it: on the CSR kernel when the full operator uses
+        a kernel, with the restricted cost model's K when the full operator
+        is hybrid. With a mesh, the sharded restricted head, on replicated
+        activations under 'allgather'."""
+        hot_k = "auto" if self.hybrid_k is not None else None
+        if self.mesh is None:
+            return build_restricted_adj(
+                g, rows, use_pallas=self.use_pallas or hot_k is not None, hot_k=hot_k,
+                compute_dtype=self.pallas_dtype, h_hint=out_dim, device=device)
+        head = build_restricted_sharded_adj(
+            g, rows, self.mesh, hot_k=hot_k, compute_dtype=self.pallas_dtype,
+            use_pallas=self.use_pallas, h_hint=out_dim)
+        return head if self.halo else ReplicatedHead(head)
+
+    def on_csr_kernel(self, adj) -> bool:
+        """Whether ``adj``, an operator of this value's, is the CSR kernel's
+        on one device (not the segment path, the hybrid or a partition)."""
+        return self.mesh is None and isinstance(adj.plan, SpmmPlan)
+
+
 class Trainer:
     def __init__(
         self,
@@ -128,31 +223,26 @@ class Trainer:
         tp_mesh=None,
     ):
         """``seed`` seeds the dropout generator (parameters come with the
-        model). ``use_pallas``: aggregate through the CSR kernel (else the
-        plain gather/``index_add_`` path). ``pallas_dtype``: the kernel's
-        input dtype, 'float32' or 'bfloat16' (parameters, optimizer and loss
-        stay f32). ``device``: None means the GPU (raises without one).
-        ``hybrid_k``/``hybrid_fused``/``hybrid_f32_mode``: the hybrid
-        decomposition (ops/hybrid.py), as ``NormAdj.from_graph`` takes them;
-        'auto' prices it at the model's hidden width. ``masked_head``: the
-        final layer aggregates into the train rows only during ``fit``
+        model). ``device``: None means the GPU (raises without one), and a
+        ``mesh`` or ``tp_mesh``'s device where one is given. ``use_pallas``,
+        ``pallas_dtype``, ``hybrid_k``, ``hybrid_fused``,
+        ``hybrid_f32_mode``, ``plan_cache``, ``mesh`` and ``halo`` choose
+        the aggregation operator: they make the trainer's ``aggregation``
+        (``Aggregation``), which says what each means. ``masked_head``:
+        the final layer aggregates into the train rows only during ``fit``
         (exact for GCN; EGCN's dropout on the logits then draws a mask of
         another shape, so its run is statistically equal, not step for
-        step; the JK network has no masked head). ``plan_cache``: a
-        directory of persisted plans (ops/plan_cache.py). ``debug_checks``:
+        step; the JK network has no masked head). ``debug_checks``:
         after every step, raise ``FloatingPointError`` naming the epoch and
         the tensor when the loss, a gradient or a parameter holds a NaN or
         an Inf. The step keeps its path (kernel, hybrid, masked head), so a
         NaN the kernel produces is caught too; the checks read the device
         every step. (The JAX trainer's checkify mode runs the segment path,
         since checkify cannot instrument its Pallas kernel; pass
-        ``use_pallas=False`` for that path here.) ``mesh``: a
-        ``parallel.Mesh`` (``make_mesh``); the trainer then runs on its
-        device (``device`` must be None or the same), with the 'allgather'
-        partition, or the halo exchange with ``halo`` (the sharded hybrid
-        with ``hybrid_k`` besides). ``tp_mesh``: a ``parallel.Mesh`` over
-        which EGCN's embedding is cut by columns (``make_mesh(axis=
-        "model")``), alone or beside a ``mesh`` over the same ranks."""
+        ``use_pallas=False`` for that path here.) ``tp_mesh``: a
+        ``parallel.Mesh`` over which EGCN's embedding is cut by columns
+        (``make_mesh(axis="model")``), alone or beside a ``mesh`` over the
+        same ranks."""
         if masked_head and isinstance(model, JumpingKnowledgeNetwork):
             raise ValueError(JK_NO_MASKED_HEAD)
         if mesh is not None and tp_mesh is not None and (
@@ -161,50 +251,31 @@ class Trainer:
             raise ValueError("a tp_mesh beside a graph mesh spans the same ranks: rank "
                              f"{tp_mesh.rank} of {tp_mesh.world_size} on {tp_mesh.device} "
                              f"against {mesh.rank} of {mesh.world_size} on {mesh.device}")
-        if mesh is not None:
-            if plan_cache is not None:
-                raise ValueError("plan_cache with a mesh: a plan cache holds one device's "
-                                 "operator, which a mesh never builds (ROADMAP.md)")
-            if hybrid_k is not None and not halo:
-                raise ValueError("hybrid_k with the 'allgather' partition: it has no hybrid "
-                                 "form; the sharded hybrid needs halo=True (ROADMAP.md)")
-            if hybrid_f32_mode == "split2":
-                raise ValueError("hybrid_f32_mode='split2' with a mesh: the sharded hybrid's "
-                                 "f32 products are 'highest' (ROADMAP.md)")
+        self.aggregation = Aggregation(use_pallas, pallas_dtype, hybrid_k, hybrid_fused,
+                                       hybrid_f32_mode, plan_cache, mesh, halo)
         if mesh is not None or tp_mesh is not None:
             group_device = (mesh or tp_mesh).device
             if device is not None and torch.device(device) != group_device:
                 raise ValueError(f"device {device} is not the mesh's {group_device}")
             device = group_device
-        if halo and mesh is None:
-            raise ValueError("halo=True needs a mesh")
-        self.mesh = mesh
-        self.halo = halo
         self.tp_mesh = tp_mesh
         self.device = resolve_device(device)
         if tp_mesh is not None:
-            from ..parallel.tensor import apply_tp
-
             apply_tp(model, tp_mesh)
         self.model = model.to(self.device)
         self.lr = lr
         self.seed = seed
-        self.use_pallas = use_pallas
-        self.pallas_dtype = pallas_dtype
-        self.hybrid_k = hybrid_k
-        self.hybrid_fused = hybrid_fused
-        self.hybrid_f32_mode = hybrid_f32_mode
         self.masked_head = masked_head
-        self.plan_cache = plan_cache
         self.debug_checks = debug_checks
         self.optimizer = resolve_optimizer(optimizer, self.model.parameters(), lr)
         # one dropout stream per trainer; each fit continues it, so refits
         # draw fresh masks (the JAX trainer folds in a fit counter instead)
         self.generator = torch.Generator(device=self.device).manual_seed(dropout_seed(seed))
-        self._adj: Optional[NormAdj] = None
-        self._adj_key: Optional[tuple] = None
+        # the operator, the graph it was built over, the features; the head's
+        self._adj = None
+        self._adj_key: Optional[TextGraph] = None
         self._feats: Optional[NodeFeatures] = None
-        self._adj_out: Optional[RestrictedAdj] = None
+        self._adj_out = None
         self._adj_out_key: Optional[tuple] = None
         self._restored = False
         # fit's CUDA graphs (train/graphs.py), and the keys of the last eager
@@ -223,101 +294,61 @@ class Trainer:
         """Finalize the graph into the operator + feature structures. The
         operator (normalization + kernel plan) is cached by edge-array
         identity, like the JAX trainer's."""
-        # the key holds the arrays themselves, so their ids cannot be reused
-        key = (g.edge_src, g.edge_w, g.n_nodes, self.mesh, self.halo)
         old = self._adj_key
-        if old is None or not (old[0] is key[0] and old[1] is key[1] and old[2:] == key[2:]):
-            if self.mesh is not None:
-                from ..parallel import (build_halo_adj, build_hybrid_sharded_adj,
-                                        build_sharded_adj)
-
-                if self.halo:
-                    self._adj = None
-                    if self.hybrid_k is not None:  # None: no hot set, the pure halo
-                        self._adj = build_hybrid_sharded_adj(
-                            g, self.mesh, hot_k=self.hybrid_k, compute_dtype=self.pallas_dtype,
-                            h_hint=getattr(self.model, "n_hidden", 128),
-                            fused=self.hybrid_fused, use_pallas=self.use_pallas)
-                    if self._adj is None:
-                        self._adj = build_halo_adj(g, self.mesh, use_pallas=self.use_pallas,
-                                                   compute_dtype=self.pallas_dtype)
-                else:
-                    self._adj = build_sharded_adj(g, self.mesh, use_pallas=self.use_pallas,
-                                                  pallas_dtype=self.pallas_dtype)
-            else:
-                self._adj = NormAdj.from_graph(
-                    g, use_pallas=self.use_pallas, pallas_dtype=self.pallas_dtype,
-                    device=self.device, hybrid_k=self.hybrid_k,
-                    hybrid_fused=self.hybrid_fused, hybrid_f32_mode=self.hybrid_f32_mode,
-                    h_hint=getattr(self.model, "n_hidden", 128), plan_cache=self.plan_cache,
-                )
-            self._adj_key = key
-            self._drop_graphs()
+        if (old is None or old.edge_src is not g.edge_src or old.edge_w is not g.edge_w
+                or old.n_nodes != g.n_nodes):
+            self.adopt(self.aggregation.operator(
+                g, self.device, h_hint=getattr(self.model, "n_hidden", 128)), g)
         self._feats = NodeFeatures.from_graph(g, device=self.device)
-        if self.halo and getattr(self.model, "tp", None) is None:
+        if self.aggregation.halo and getattr(self.model, "tp", None) is None:
             # the rank's rows of the first layer's input (a TP embedding
             # takes every row)
             _, lo = self._adj.row_block
             self._feats = self._feats.row_block(lo, self._adj.rows_per)
         return self._adj, self._feats
 
-    def _group(self):
-        """The process group the metrics and gradients are summed over: the
-        halo mesh's, else None (every rank holds every row)."""
-        return self.mesh.group if self.halo else None
+    def adopt(self, adj, g: TextGraph, feats: Optional[NodeFeatures] = None) -> None:
+        """Take ``adj``, built by an ``aggregation`` equal to this trainer's
+        over ``g``'s edges, as the operator (and ``feats`` as the features):
+        :meth:`prepare` keeps it for every graph of the same edge arrays."""
+        if adj is not self._adj:
+            self._drop_graphs()
+        self._adj, self._adj_key = adj, g
+        if feats is not None:
+            self._feats = feats
 
     def _local(self, t: torch.Tensor) -> torch.Tensor:
         """A per-node tensor as this trainer's operator holds its rows: a
         halo rank's block, padded with zeros (False) past the last node;
         whole elsewhere."""
-        if not self.halo:
+        if not self.aggregation.halo:
             return t
-        from ..parallel.sharded import local_block
-
-        return local_block(self.mesh, t, self._adj.rows_per)
+        return local_block(self.aggregation.mesh, t, self._adj.rows_per)
 
     def share_adjacency(self, other: "Trainer") -> None:
         """Adopt another trainer's prepared operator (normalization and
         kernel plan). Hierarchy cascades and ensembles swap labels, masks
         and features with ``dataclasses.replace`` while the edge arrays stay
         the same objects, so their members can share one build. Nothing is
-        adopted unless the aggregation settings are equal; :meth:`prepare`'s
-        edge-identity check still guards against a different graph."""
-        settings = lambda t: (t.device, t.use_pallas, t.pallas_dtype, t.hybrid_k,
-                              t.hybrid_fused, t.hybrid_f32_mode, t.mesh, t.halo, t.tp_mesh)
+        adopted unless the device, the ``aggregation`` and the ``tp_mesh``
+        are equal; :meth:`prepare`'s edge-identity check still guards
+        against a different graph."""
+        settings = lambda t: (t.device, t.aggregation, t.tp_mesh)
         if other._adj is None or settings(self) != settings(other):
             return
-        self._adj, self._adj_key = other._adj, other._adj_key
+        self.adopt(other._adj, other._adj_key)
         if other._adj_out is not None and self.masked_head and other.masked_head:
             self._adj_out, self._adj_out_key = other._adj_out, other._adj_out_key
 
-    def _prepare_restricted(self, g: TextGraph) -> RestrictedAdj:
-        """The masked head's operator over the train rows, cached by
-        edge-array and train-mask identity (members of an ensemble share
-        edges but differ in masks). Built as the JAX trainer builds it: on
-        the CSR kernel when the full operator uses a kernel, with the
-        restricted cost model's K when the full operator is hybrid. With a
-        mesh, the sharded restricted head (parallel/restricted_sharded.py),
-        on replicated activations under 'allgather'."""
+    def _prepare_restricted(self, g: TextGraph):
+        """The masked head's operator over the train rows
+        (``Aggregation.head``), cached by edge-array and train-mask identity
+        (members of an ensemble share edges but differ in masks)."""
         key = (g.edge_src, g.edge_w, g.train_mask)
         old = self._adj_out_key
         if old is None or not all(a is b for a, b in zip(old, key)):
-            hybrid = self.hybrid_k is not None
-            rows = np.flatnonzero(np.asarray(g.train_mask))
-            if self.mesh is not None:
-                from ..parallel import ReplicatedHead, build_restricted_sharded_adj
-
-                self._adj_out = build_restricted_sharded_adj(
-                    g, rows, self.mesh, hot_k="auto" if hybrid else None,
-                    compute_dtype=self.pallas_dtype, use_pallas=self.use_pallas,
-                    h_hint=self.model.out_dim)
-                if not self.halo:
-                    self._adj_out = ReplicatedHead(self._adj_out)
-            else:
-                self._adj_out = build_restricted_adj(
-                    g, rows, use_pallas=self.use_pallas or hybrid,
-                    hot_k="auto" if hybrid else None, compute_dtype=self.pallas_dtype,
-                    h_hint=self.model.out_dim, device=self.device)
+            self._adj_out = self.aggregation.head(g, np.flatnonzero(np.asarray(g.train_mask)),
+                                                  self.device, self.model.out_dim)
             self._adj_out_key = key
         return self._adj_out
 
@@ -338,7 +369,7 @@ class Trainer:
         and the returned loss are summed over the ranks)."""
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss_backward(adj, feats, y, mask, adj_out, denom)
-        if self.halo:
+        if self.aggregation.halo:
             loss = self._sum_over_ranks(loss.detach())
         if self.debug_checks:
             self._check_finite(epoch, [("loss", loss)] + [
@@ -354,13 +385,11 @@ class Trainer:
         """Halo: sum each whole parameter's gradient (one flat all_reduce)
         and the loss over the ranks; returns the summed loss. A TP rank's
         cut blocks are left out: their gradients are whole already."""
-        from ..parallel.tensor import tp_param_shardings
-
         cut = tp_param_shardings(self.model) if self.tp_mesh is not None else {}
         grads = [p.grad for name, p in self.model.named_parameters()
                  if p.grad is not None and cut.get(name) is None]
         flat = torch.cat([g.flatten() for g in grads] + [loss.reshape(1)])
-        torch.distributed.all_reduce(flat, group=self.mesh.group)
+        torch.distributed.all_reduce(flat, group=self.aggregation.group)
         off = 0
         for g in grads:
             g.copy_(flat[off:off + g.numel()].view_as(g))
@@ -382,7 +411,7 @@ class Trainer:
                    val_denom: Optional[torch.Tensor] = None):
         logits = self.model(adj, feats, train=False)
         pred = logits.argmax(dim=-1)
-        group = self._group()
+        group = self.aggregation.group
         val_loss = masked_cross_entropy(logits, y, val_mask, val_denom)
         if group is not None:
             torch.distributed.all_reduce(val_loss, group=group)
@@ -407,8 +436,8 @@ class Trainer:
         the CSR kernel's (the segment path's atomics make even two eager fits
         differ; the hybrid). The masked head's operator then runs on the CSR
         kernel too."""
-        if (self.device.type != "cuda" or self.mesh is not None or self.tp_mesh is not None
-                or self.debug_checks or not isinstance(adj.plan, SpmmPlan)):
+        if (self.device.type != "cuda" or self.tp_mesh is not None or self.debug_checks
+                or not self.aggregation.on_csr_kernel(adj)):
             return None
         return (adj, adj_out, n_classes,
                 tuple((p.data_ptr(), p.shape) for p in self.model.parameters()),
@@ -467,13 +496,13 @@ class Trainer:
         train_mask = self._local(self._tensor(g.train_mask))
         val_mask = self._local(self._tensor(g.val_mask))
         denom = val_denom = None
-        if self.halo:  # the global counts, once
-            denom = global_count(train_mask, self._group())
-            val_denom = global_count(val_mask, self._group())
+        if self.aggregation.halo:  # the global counts, once
+            denom = global_count(train_mask, self.aggregation.group)
+            val_denom = global_count(val_mask, self.aggregation.group)
         adj_out, y_step, mask_step = None, y, train_mask
         if self.masked_head:
             adj_out = self._prepare_restricted(g)
-            if self.mesh is None:
+            if self.aggregation.mesh is None:
                 # logits at the train rows only: labels sliced to them, every
                 # row counted, so the loss sees the full step's terms (over
                 # ranks the head keeps every row, zero off the train rows)
@@ -603,10 +632,11 @@ class Trainer:
         (synchronized on the card) are in ``self.minibatch_seconds``."""
         from ..data.batching import NeighborhoodBatcher
 
-        refused = [name for name, on in (("hybrid_k", self.hybrid_k is not None),
+        agg = self.aggregation
+        refused = [name for name, on in (("hybrid_k", agg.hybrid_k is not None),
                                          ("masked_head", self.masked_head),
-                                         ("plan_cache", self.plan_cache is not None),
-                                         ("a mesh", self.mesh is not None),
+                                         ("plan_cache", agg.plan_cache is not None),
+                                         ("a mesh", agg.mesh is not None),
                                          ("a tp_mesh", self.tp_mesh is not None)) if on]
         if refused:
             raise ValueError(f"fit_minibatch does not run {', '.join(refused)}: "
@@ -633,8 +663,8 @@ class Trainer:
                     if sub is None:
                         break
                     t1 = time.perf_counter()
-                    adj = sub.to_adj(self.device, use_pallas=self.use_pallas,
-                                     pallas_dtype=self.pallas_dtype)
+                    adj = sub.to_adj(self.device, use_pallas=agg.use_pallas,
+                                     pallas_dtype=agg.pallas_dtype)
                     sync()
                     t2 = time.perf_counter()
                     nodes = self._tensor(sub.nodes[:adj.n_nodes])
@@ -668,9 +698,7 @@ class Trainer:
         for it, so each can :meth:`restore` right after. With a ``tp_mesh``
         every rank calls it: the cut parameters and their moments are
         gathered to the single-device layout, which rank 0 writes."""
-        from ..parallel.tensor import gather_optimizer_state, gather_params
-
-        mesh = self.mesh or self.tp_mesh
+        mesh = self.aggregation.mesh or self.tp_mesh
         params = gather_params(self.model, export_params(self.model))
         opt_state = gather_optimizer_state(self.model, self.optimizer.state_dict())
         # a mesh of no group is one process playing a rank: nothing to wait for
@@ -695,8 +723,6 @@ class Trainer:
         Under a ``tp_mesh`` the single-device layout is cut to this rank's
         blocks again. Returns the epoch to pass to ``fit(...,
         start_epoch=...)``."""
-        from ..parallel.tensor import apply_tp_state, shard_params
-
         params, state = load_checkpoint(path, export_params(self.model))
         load_jax_params(self.model, shard_params(self.model, params))
         if state is not None:
@@ -712,10 +738,8 @@ class Trainer:
         rank's rows."""
         adj, feats = (self._adj, self._feats) if g is None else self.prepare(g)
         logits = self.model(adj, feats, train=False)
-        if self.halo:
-            from ..parallel.sharded import all_gather_rows
-
-            logits = all_gather_rows(self.mesh, logits)[:adj.n_nodes]
+        if self.aggregation.halo:
+            logits = all_gather_rows(self.aggregation.mesh, logits)[:adj.n_nodes]
         return logits
 
     def evaluate(self, g: TextGraph, mask=None, n_classes: Optional[int] = None):

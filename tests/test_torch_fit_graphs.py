@@ -119,16 +119,25 @@ def test_one_read_an_epoch_gives_the_history_and_log_lines_of_separate_reads(gra
     lr = kw.pop("lr", 0.05)
     epochs = 30
     runs = []
-    for fit in ("one read", "separate reads"):
-        trainer = _trainer(graph, lr=lr)
-        lines = []
-        if fit == "one read":
-            hist = trainer.fit(graph, epochs=epochs, n_classes=4, verbose=1,
-                               log_fn=lines.append, **kw)
-            assert lines.pop().startswith("training took ")
-        else:
-            hist = _separate_reads_fit(trainer, graph, epochs, log_fn=lines.append, **kw)
-        runs.append((hist, lines))
+    # both fits on one intra-op thread: no OpenMP team or threaded BLAS call
+    # then orders a sum, however loaded the machine (a run of six test
+    # workers once put one f32 ulp between the two, in a case that took
+    # 176 s instead of about one)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for fit in ("one read", "separate reads"):
+            trainer = _trainer(graph, lr=lr)
+            lines = []
+            if fit == "one read":
+                hist = trainer.fit(graph, epochs=epochs, n_classes=4, verbose=1,
+                                   log_fn=lines.append, **kw)
+                assert lines.pop().startswith("training took ")
+            else:
+                hist = _separate_reads_fit(trainer, graph, epochs, log_fn=lines.append, **kw)
+            runs.append((hist, lines))
+    finally:
+        torch.set_num_threads(threads)
     (hist, lines), (ref_hist, ref_lines) = runs
     assert hist == ref_hist
     assert lines == ref_lines

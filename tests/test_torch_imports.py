@@ -52,3 +52,69 @@ def test_every_port_module_is_checked():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py") in FILES
     for name in MODELS_AND_HIERARCHIES:
         assert ROOT / "pytextgcn_tpu_torch" / name in FILES, name
+
+
+# the layers: the operators (ops/) never reach the partitions over ranks
+# (parallel/, which imports ops); a Trainer's operator, its key and its
+# features are written by the trainer alone (Trainer.prepare and
+# Trainer.adopt, which the ensemble and share_adjacency go through)
+PORT = ROOT / "pytextgcn_tpu_torch"
+TRAINER_FIELDS = ("_adj", "_adj_key", "_feats")
+
+
+def _imports_parallel(tree, path):
+    package = path.relative_to(ROOT).with_suffix("").parts[:-1]
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = list(package[:len(package) - node.level + 1]) if node.level else []
+            module = base + (node.module.split(".") if node.module else [])
+            names = [".".join(module + [alias.name]) for alias in node.names]
+        else:
+            continue
+        if any(n.startswith("pytextgcn_tpu_torch.parallel") for n in names):
+            return True
+    return False
+
+
+def _writes_trainer_fields(tree):
+    for node in ast.walk(tree):
+        targets = (node.targets if isinstance(node, ast.Assign)
+                   else [node.target] if isinstance(node, (ast.AugAssign, ast.AnnAssign))
+                   else [])
+        for target in targets:
+            for t in ast.walk(target):
+                if isinstance(t, ast.Attribute) and t.attr in TRAINER_FIELDS:
+                    return t.attr
+    return None
+
+
+LAYER_CASES = ([("ops-imports-no-parallel", p) for p in sorted((PORT / "ops").rglob("*.py"))]
+               + [("only-the-trainer-writes-its-operator", p) for p in FILES
+                  if p != PORT / "train" / "trainer.py"])
+
+
+@pytest.mark.parametrize("rule,path", LAYER_CASES,
+                         ids=[f"{rule}:{p.relative_to(ROOT)}" for rule, p in LAYER_CASES])
+def test_layering(rule, path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    if rule == "ops-imports-no-parallel":
+        assert not _imports_parallel(tree, path), f"{path.relative_to(ROOT)} imports parallel"
+    else:
+        field = _writes_trainer_fields(tree)
+        assert field is None, f"{path.relative_to(ROOT)} assigns a Trainer's {field}"
+
+
+def test_the_layering_rules_see_what_they_forbid():
+    """Each rule, on code that breaks it: a relative and an absolute import of
+    parallel from ops/, and the writes the ensemble once made."""
+    ops_file = PORT / "ops" / "spmm.py"
+    for src in ("from ..parallel import HaloAdj", "from .. import parallel",
+                "import pytextgcn_tpu_torch.parallel.halo",
+                "def f():\n    from ..parallel.halo import spmm_halo"):
+        assert _imports_parallel(ast.parse(src), ops_file), src
+    assert not _imports_parallel(ast.parse("from .hybrid import segment_sum"), ops_file)
+    assert _writes_trainer_fields(ast.parse("t._adj, t._adj_key, t._feats = a, k, f")) == "_adj"
+    assert _writes_trainer_fields(ast.parse("t._feats = f")) == "_feats"
+    assert _writes_trainer_fields(ast.parse("adj = t._adj")) is None

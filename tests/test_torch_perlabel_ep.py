@@ -22,10 +22,12 @@ from pytextgcn_tpu.parallel import make_mesh
 from pytextgcn_tpu_torch import Text2Graph
 from pytextgcn_tpu_torch.data import synthetic_corpus
 from pytextgcn_tpu_torch.hierarchy import eval_per_label, train_per_label
-from pytextgcn_tpu_torch.hierarchy.perlabel import (_PAD_BIAS, _batched_member_preds,
+from pytextgcn_tpu_torch.hierarchy.perlabel import (_PAD_BIAS, Ensemble, _batched_member_preds,
                                                     _stack_members, _stacked_logits)
 from pytextgcn_tpu_torch.models import GCN, export_params
 from pytextgcn_tpu_torch.ops import NodeFeatures, NormAdj
+from pytextgcn_tpu_torch.parallel import Mesh
+from pytextgcn_tpu_torch.train import Trainer
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 CPU = {"device": "cpu"}
@@ -173,6 +175,37 @@ def test_a_one_device_mesh_takes_the_batched_step(ragged_corpus):
     with pytest.raises(ValueError, match="parallel.Mesh"):
         train_per_label(g, child, parent, _factory(), epochs=2, seed=3, mesh=2,
                         trainer_kwargs=CPU)
+
+
+def test_the_members_hold_the_ensembles_operator(ragged_corpus):
+    """The ensemble builds one operator through its lead trainer's
+    aggregation, and every member adopts it with the features; a member's
+    prepare keeps it for a graph of the same edges."""
+    g, child, parent = ragged_corpus
+    ens = Ensemble(g, child, parent, _factory(), trainer_kwargs=CPU)
+    assert all(t._adj is ens.adj and t._feats is ens.feats for t in ens.trainers)
+    assert len({t.aggregation for t in ens.trainers}) == 1
+    relabelled = dataclasses.replace(g, y=np.zeros_like(g.y))
+    assert ens.trainers[1].prepare(relabelled)[0] is ens.adj
+
+
+@pytest.mark.parametrize("setting", [
+    dict(use_pallas=False), dict(pallas_dtype="bfloat16"), dict(hybrid_k=16),
+    dict(hybrid_k=16, hybrid_fused=True, hybrid_f32_mode="highest"), dict(plan_cache="plans"),
+    dict(mesh=Mesh(None, 0, 1, torch.device("cpu"))),
+    dict(tp_mesh=Mesh(None, 0, 1, torch.device("cpu"), axis="model")),
+], ids=["segment", "bf16", "hybrid", "hybrid-fused-highest", "plan-cache", "mesh", "tp-mesh"])
+def test_share_adjacency_adopts_nothing_across_settings(ragged_corpus, setting):
+    g = ragged_corpus[0]
+    make = _factory()
+    donor = Trainer(make(g.in_dim, 3), **CPU)
+    donor.prepare(g)
+    other = Trainer(make(g.in_dim, 3), **CPU, **setting)
+    other.share_adjacency(donor)
+    assert other._adj is None and other._adj_key is None
+    same = Trainer(make(g.in_dim, 3), **CPU)
+    same.share_adjacency(donor)
+    assert same._adj is donor._adj and same.aggregation == donor.aggregation
 
 
 # ---- EGCN and JK members (tolerance as above; the LSTM against torch.nn.LSTM

@@ -147,7 +147,7 @@ def test_debug_checks_catches_nan(graphs, path):
     make = lambda: GCN(g.in_dim, n_classes, n_hidden_gcn=8, dropout=0.0,
                        generator=torch.Generator().manual_seed(0))
     t = Trainer(make(), lr=0.05, seed=0, device="cpu", debug_checks=True, **path)
-    assert t.use_pallas and (t.masked_head, t.hybrid_k) == (
+    assert t.aggregation.use_pallas and (t.masked_head, t.aggregation.hybrid_k) == (
         path.get("masked_head", False), path.get("hybrid_k"))
     hist = t.fit(g, epochs=3, n_classes=n_classes)  # clean graph: no error
     assert len(hist) == 3
