@@ -12,8 +12,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
 Phases, each fatal (exit code 1, no result line) when it fails:
 
-1. build: the three CUDA kernels (``csrc/spmm_csr.cu``, ``csrc/fused_dual.cu``,
-   ``csrc/adam.cu``, nvcc for sm_90a, their ptxas registers and spills), three timing builds
+1. build: the four CUDA kernels (``csrc/spmm_csr.cu``, ``csrc/fused_dual.cu``,
+   ``csrc/adam.cu``, ``csrc/embedding.cu``, nvcc for sm_90a, their ptxas
+   registers and spills), three timing builds
    of the CSR kernel (every row read from L1, no row reads, cache hints:
    ``CSR_TIMING_BUILDS``), four of the dual kernel (f32: one TF32
    pass, no split; split: one bf16 pass; split and bf16: float4 hot
@@ -29,7 +30,8 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    an eval every epoch, ``evaluate``, the results row) on the CSR kernel
    plan. The kernel's launch count must rise by exactly 4 per train step
    plus 2 per forward-only pass, and ``Adam.launches`` (``csrc/adam.cu``)
-   by exactly 1 per train step; losses must be finite and falling, and the
+   by exactly 1 per train step, and the embedding's kernels
+   (``csrc/embedding.cu``) not at all; losses must be finite and falling, and the
    model's logits must agree with the plain aggregation path.
 5. hybrid plan: the dense-hot/sparse-cold decomposition of the same graph
    at K = 4096, f32 'split2' (D as a bf16 hi/lo pair); print K, the
@@ -65,7 +67,9 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    plain paths; the fused Adam (``optimizer_times``) at EGCN's, GCN's and
    the ensemble's parameter sets, bit for bit against torch's foreach step
    over 3 steps, its device time a step beside the foreach step's, torch's
-   fused Adam's and its bytes bound; peak memory; and the split kernel at
+   fused Adam's and its bytes bound; EGCN's embedding activation
+   (``embedding_times``): each of its three launches against the eager
+   composition's passes and its bytes bound; peak memory; and the split kernel at
    K = 1024, 2048 and 4096.
 10. models and hierarchies, on the CSR kernel and phase 2's graph at full
    width, ``MODEL_EPOCHS`` epochs each: the flat experiment with EGCN
@@ -77,7 +81,9 @@ Phases, each fatal (exit code 1, no result line) when it fails:
    per-label runs must each write their results row. On each path the
    kernel must launch exactly 4 times per train step plus 2 per
    forward-only pass of every level or member, Adam's kernel once per
-   train step of every level or member, each loss must be finite
+   train step of every level or member, the embedding's kernels on the EGCN
+   path alone, 2 times per train step plus once per forward-only pass (0 on
+   the others), each loss must be finite
    and fall (a member with one class has a loss of exactly 0), and the
    kernel must match its plain version at every width the path ran; each
    path's train step time and peak memory are printed. Composed per-label
@@ -219,6 +225,7 @@ It prints a ``{"kernels": [...]}`` line, the card line, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -433,6 +440,71 @@ def optimizer_times(n: int, dev, reps: int = 20) -> list:
     return rows
 
 
+def embedding_times(n: int, dev, width: int = 2000, rate: float = 0.7,
+                    reps: int = 20) -> list:
+    """EGCN's embedding activation over ``[n, width]`` at dropout ``rate``
+    (``ops/embedding.py::SeluDropout``, the kernels ``csrc/embedding.cu``),
+    one row a launch: the train step's forward, its backward, the
+    evaluation. Each is checked bit for bit against the eager composition
+    on the same uniforms, then timed in turns against it (its plain version:
+    torch's passes, the backward as autograd runs it through ``w[:n]``'s
+    slice), beside the bytes bound over 3.35 TB/s: the forward reads W and
+    u and writes h (12 bytes an element) and the mask (1/8), the backward
+    reads dh, W and the mask and writes dW (12 + 1/8), the evaluation reads
+    W and writes its output (8). Each time is the device time of the
+    launches (:func:`kernel_ms`)."""
+    import torch
+
+    from pytextgcn_tpu_torch.ops.embedding import SeluDropout
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    w = torch.randn(n, width, device=dev, generator=gen)
+    b = torch.randn(width, device=dev, generator=gen)
+    u = torch.rand(n, width, device=dev, generator=gen)
+    dh = torch.randn(n, width, device=dev, generator=gen)
+    keep = 1.0 - rate
+    wk, we = w.clone().requires_grad_(), w.clone().requires_grad_()
+    hk = SeluDropout.apply(wk, b, u, rate)
+    he = torch.where(u < keep, torch.selu(we[:n] + b) / keep, 0.0)
+    cases = {
+        "forward": (lambda: SeluDropout.apply(w, b, u, rate),
+                    lambda: torch.where(u < keep, torch.selu(w[:n] + b) / keep, 0.0), 12 + 1 / 8),
+        "backward": (lambda: torch.autograd.grad(hk, wk, dh, retain_graph=True),
+                     lambda: torch.autograd.grad(he, we, dh, retain_graph=True), 12 + 1 / 8),
+        "evaluation": (lambda: SeluDropout.apply(w, b, None, 0.0),
+                       lambda: torch.selu(w + b), 8),
+    }
+    rows = []
+    with torch.no_grad():
+        got = [SeluDropout.apply(w, b, u, rate), SeluDropout.apply(w, b, None, 0.0)]
+        want = [cases["forward"][1](), torch.selu(w + b)]
+    got.append(cases["backward"][0]()[0])
+    want.append(cases["backward"][1]()[0])
+    for name, x, y in zip(("forward", "evaluation", "backward"), got, want):
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            fail(f"embedding {name}: not bit for bit with the eager composition")
+    del got, want
+    for name, (kernel, plain, per_element) in cases.items():
+        times = {"kernel": [], "plain": []}
+        ctx = torch.no_grad() if name != "backward" else contextlib.nullcontext()
+        with ctx:
+            for k, fn in (("kernel", kernel), ("plain", plain), ("plain", plain),
+                          ("kernel", kernel)):
+                times[k].append(kernel_ms(fn, reps))
+        n_bytes = n * width * per_element
+        row = {"launch": name, "n": n, "width": width, "rate": rate, "bytes": n_bytes,
+               "bound_ms": n_bytes / spec_peak("hbm_gbps") * 1e3, "bound_by": "bytes",
+               **{f"{k}_ms": sum(v) / len(v) for k, v in times.items()}, "turns_ms": times}
+        log(f"  embedding {name} [{n}, {width}], dropout {rate}: kernel "
+            f"{row['kernel_ms']:.4f} ms, eager composition {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms by bytes ({n_bytes / 1e9:.3f} GB; "
+            f"{row['bound_ms'] / row['kernel_ms'] * 100:.1f}% of it); bit for bit")
+        rows.append(row)
+    del cases, hk, he, wk, we
+    torch.cuda.empty_cache()
+    return rows
+
+
 def compare(name: str, got, want, scale, rtol: float, atol: float = ATOL) -> float:
     """Fails unless ``|got - want| <= atol + rtol * scale`` everywhere."""
     import torch
@@ -607,9 +679,10 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
         counts = {name: read() for name, (_, read) in counters.items()}
         return out, secs, counts, (torch.cuda.max_memory_allocated() - mem0) / 1e9
 
-    def passes(hist):
-        """Launches a fit makes: 4 a train step, 2 an evaluation."""
-        return 4 * len(hist) + 2 * sum("val_f1" in rec for rec in hist)
+    def passes(hist, step=4, evaluation=2):
+        """Launches a fit makes: ``step`` a train step, ``evaluation`` an
+        evaluation (the CSR kernel's 4 and 2; the embedding's 2 and 1)."""
+        return step * len(hist) + evaluation * sum("val_f1" in rec for rec in hist)
 
     def check_losses(label, hist, n_out):
         losses = [rec["loss"] for rec in hist]
@@ -626,18 +699,21 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
     mask_dev = torch.as_tensor(g.train_mask, device=dev)
     paths, widths_run = {}, set()
 
-    def record(name, trainers, secs, counts, expected, steps, peak_gb, summary, timed):
+    def record(name, trainers, secs, counts, expected, steps, peak_gb, summary, timed,
+               embeds=0):
         """Checks the path's launch counts (``expected`` CSR launches, one of
-        Adam for each of its ``steps`` optimizer steps), notes its widths,
-        and times a train step of ``timed`` (one of its trainers; None: no
-        timing)."""
-        if counts["csr"] != expected or counts["dual"] or counts["adam"] != steps:
-            fail(f"{name}: launches {counts}, expected {expected} CSR launches and {steps} "
-                 "of Adam")
+        Adam for each of its ``steps`` optimizer steps, ``embeds`` of the
+        embedding's kernels), notes its widths, and times a train step of
+        ``timed`` (one of its trainers; None: no timing)."""
+        if (counts["csr"] != expected or counts["dual"] or counts["adam"] != steps
+                or counts["embedding"] != embeds):
+            fail(f"{name}: launches {counts}, expected {expected} CSR launches, {steps} "
+                 f"of Adam and {embeds} of the embedding")
         widths = sorted({layer.w.shape[1] for t in trainers for layer in t.model.layers})
         widths_run.update(widths)
         entry = {"seconds": secs, "launches": counts["csr"], "adam_launches": counts["adam"],
-                 "widths": widths, "peak_memory_gb": peak_gb}
+                 "embedding_launches": counts["embedding"], "widths": widths,
+                 "peak_memory_gb": peak_gb}
         timing = ""
         if timed is not None:
             step = lambda: timed._train_step(timed._adj, timed._feats, y0, mask_dev)
@@ -651,7 +727,8 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
             timing += ")"
         paths[name] = entry
         log(f"  {name} in {secs:.1f}s: CSR launches {counts['csr']} (expected {expected}), Adam "
-            f"launches {counts['adam']} (expected {steps}); {summary}; widths {widths}{timing}; peak memory {peak_gb:.2f} GB above what "
+            f"launches {counts['adam']} (expected {steps}), embedding launches "
+            f"{counts['embedding']} (expected {embeds}); {summary}; widths {widths}{timing}; peak memory {peak_gb:.2f} GB above what "
             "was held before it")
 
     # EGCN at the protocols' lr 0.05 first climbs (Adam moves every embedding
@@ -667,10 +744,13 @@ def models_and_hierarchies(args, card, cfg, g, n_classes: int, hidden: int, plan
         if model_name == "egcn" and tuple(model.embed.w.shape) != (n, 2000):
             fail(f"egcn: embedding {tuple(model.embed.w.shape)}, expected ({n}, 2000)")
         loss = check_losses(model_name, res["history"], n_classes)
+        # EGCN's embedding on one card: forward and backward a train step,
+        # one pass an evaluation and the final evaluate's
         record(f"{model_name} flat", [res["trainer"]], secs, counts,
                passes(res["history"]) + 2, len(res["history"]), peak,
                f"loss {loss}, test acc {res['accuracy']:.4f}, macro-F1 {res['f1_macro']:.4f}",
-               res["trainer"])
+               res["trainer"],
+               passes(res["history"], 2, 1) + 1 if model_name == "egcn" else 0)
         del res, model
 
     rows_dir = tempfile.TemporaryDirectory()
@@ -3361,6 +3441,7 @@ def main(argv=None) -> int:
     from pytextgcn_tpu_torch.ops.hybrid import spmm_hybrid
     from pytextgcn_tpu_torch.ops.spmm import spmm, spmm_segment
     from pytextgcn_tpu_torch.train import Trainer
+    from pytextgcn_tpu_torch.ops import embedding
     from pytextgcn_tpu_torch.train import optim
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3371,6 +3452,7 @@ def main(argv=None) -> int:
     mag = spmm_cuda.spmm_csr_abs
     dual = fd.fused_dual_kernel
     adam_lib = optim._ADAM_LIB
+    embedding_lib = embedding._LIB
     t_start = time.perf_counter()
 
     # ------------------------------------------------------------ 1. build
@@ -3390,7 +3472,7 @@ def main(argv=None) -> int:
                   for name, (flags, _) in CSR_TIMING_BUILDS.items()}
     with ThreadPoolExecutor(10) as pool:
         builds = [pool.submit(kernel.build, True), pool.submit(dual.build, True),
-                  pool.submit(adam_lib.build, True)]
+                  pool.submit(adam_lib.build, True), pool.submit(embedding_lib.build, True)]
         timing_builds = [pool.submit(v.build)
                          for v in (*f32_timing.values(), split_1pass, hot_float4,
                                    *csr_timing.values())]
@@ -3399,7 +3481,7 @@ def main(argv=None) -> int:
         for b in timing_builds:
             b.result()
         native_build.result()
-    log(f"[1/17] built the three CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
+    log(f"[1/17] built the four CUDA kernels (and {len(csr_timing)} timing builds of the CSR "
         f"kernel, four of the dual kernel) and the native library in "
         f"{time.perf_counter() - t0:.1f}s; ptxas:")
     for out in ptxas:
@@ -3474,10 +3556,12 @@ def main(argv=None) -> int:
         "csr_shapes": (lambda: setattr(kernel, "shapes", {}), lambda: dict(kernel.shapes)),
         "dual": (lambda: setattr(dual, "launches", {}), lambda: dict(dual.launches)),
         "adam": (lambda: setattr(optim.Adam, "launches", 0), lambda: optim.Adam.launches),
+        "embedding": (lambda: setattr(embedding.SeluDropout, "launches", 0),
+                      lambda: embedding.SeluDropout.launches),
     }
     torch.cuda.reset_peak_memory_stats()
     res, main_s, counts = run_path(flat, cfg, g, n_classes, counters)
-    launches, adam_launches = counts["csr"], counts["adam"]
+    launches, adam_launches, embedding_launches = counts["csr"], counts["adam"], counts["embedding"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res["history"]
     steps = len(hist)
@@ -3490,9 +3574,9 @@ def main(argv=None) -> int:
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; test acc {res['accuracy']:.4f}, "
         f"macro-F1 {res['f1_macro']:.4f}; peak memory {peak_gb:.2f} GB")
     log(f"  results row: {res['row']}")
-    if launches != expected or counts["dual"] or counts["adam"] != steps:
-        fail(f"the main path launched the kernels {counts}, expected {expected} CSR launches "
-             f"and {steps} of Adam")
+    if launches != expected or counts["dual"] or counts["adam"] != steps or counts["embedding"]:
+        fail(f"the main path launched the kernels {counts}, expected {expected} CSR launches, "
+             f"{steps} of Adam and none of the embedding")
     if steps != args.epochs or not np.isfinite(losses).all():
         fail(f"training: {steps} steps, losses {losses}")
     if not losses[-1] < losses[0]:
@@ -3877,6 +3961,7 @@ def main(argv=None) -> int:
         f"{step_ms['kernel']:.3f} ms, hybrid path (K={HOT_K}) {step_ms['hybrid']:.3f} ms, "
         f"plain path {step_ms['plain']:.3f} ms (host clock, 20 steps)")
     adam_rows = optimizer_times(n, dev)
+    embedding_rows = embedding_times(n, dev)
 
     # ------------------------------------------------------------ 10. models, hierarchies
     paths, widths_run, width_errs, width_times, (cat1, cat2) = models_and_hierarchies(
@@ -4045,6 +4130,16 @@ def main(argv=None) -> int:
          "bound_by": "bytes",
          "ms_averages": "a step at EGCN's parameter set; by_set has GCN's and the ensemble's",
          "by_set": adam_rows},
+        {"name": "embedding", "route": "cuda", "source": "pytextgcn_tpu_torch/csrc/embedding.cu",
+         "replaces": "none: torch's bias, SELU and dropout passes over EGCN's embedding (the "
+                     "JAX package leaves them to XLA)",
+         "launches": embedding_launches,
+         "launches_models_hierarchies": {k: v["embedding_launches"] for k, v in paths.items()},
+         "ms": sum(r["kernel_ms"] for r in embedding_rows),
+         "plain_ms": sum(r["plain_ms"] for r in embedding_rows),
+         "bound_ms": sum(r["bound_ms"] for r in embedding_rows), "bound_by": "bytes",
+         "ms_averages": "the sum of an epoch's three launches; by_launch has each",
+         "by_launch": embedding_rows},
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import embedding
 from ..ops.adjacency import NormAdj
 from ..ops.features import NodeFeatures
 from ..ops.spmm import row_block, spmm
@@ -144,13 +145,19 @@ class EGCN(GCN):
         tensor-parallel layout (``self.tp``) the embedding is this rank's
         columns of every row (``feats`` whole) and the first contraction is
         summed over the ranks; a row-sharded operator then takes the rank's
-        rows of the sum."""
+        rows of the sum. On one card with identity features the embedding's
+        bias, SELU and dropout run as one pass each way
+        (``ops/embedding.py``), bit for bit with the composition here."""
         rows, tp = row_block(adj), self.tp
-        h = torch.selu(feats.matmul(self.embed.w) + self.embed.b)
-        if tp is None:
-            h = dropout(h, self.dropout, train, generator, rows)
+        w, b = self.embed.w, self.embed.b
+        if embedding.takes(w, feats, tp, rows):
+            h = embedding.selu_dropout(w, b, self.dropout, train, generator)
         else:
-            h = dropout(h, self.dropout, train, generator, cols=tp.cols)
+            h = torch.selu(feats.matmul(w) + b)
+            if tp is None:
+                h = dropout(h, self.dropout, train, generator, rows)
+            else:
+                h = dropout(h, self.dropout, train, generator, cols=tp.cols)
         for i, layer in enumerate(self.layers):
             a = adj_out if (adj_out is not None and i == len(self.layers) - 1) else adj
             xw = h @ layer.w

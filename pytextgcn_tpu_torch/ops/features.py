@@ -68,6 +68,12 @@ class NodeFeatures:
         return self.n_vocab + self.n_docs
 
     @property
+    def is_identity(self) -> bool:
+        """Whether X is the whole N x N identity: :meth:`matmul` is ``w[:N]``."""
+        return (self.x is None and self.hierarchy is None and self.node_ids is None
+                and self.block is None)
+
+    @property
     def in_dim(self) -> int:
         if self.x is not None:
             return int(self.x.shape[1])

@@ -18,7 +18,8 @@ Labels, masks and features are the graphs' inputs: :meth:`EpochGraphs.load`
 copies a ``fit`` call's into their buffers. The CSR kernel's launches a
 capture records are taken off the kernel's counters (none of them ran) and
 added back at every replay, so ``ops/spmm_cuda.py::SpmmCsrKernel.launches``
-and ``shapes`` keep counting the launches that ran.
+and ``shapes`` keep counting the launches that ran; so do the embedding's
+(``ops/embedding.py::SeluDropout.launches``).
 """
 
 from __future__ import annotations
@@ -29,32 +30,35 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops import spmm_cuda
+from ..ops.embedding import SeluDropout
 from .profiling import span, stage
 
 
 @dataclasses.dataclass
 class Launches:
     """The CSR kernel's launches one graph holds, in all and by
-    ``(n_rows, n_cols, H)``."""
+    ``(n_rows, n_cols, H)``, and the embedding's (``embedding``)."""
 
     n: int = 0
     shapes: Dict[Tuple[int, int, int], int] = dataclasses.field(default_factory=dict)
+    embedding: int = 0
 
     def count(self) -> None:
-        """Add one replay's launches to the kernel's counters."""
+        """Add one replay's launches to the kernels' counters."""
         k = spmm_cuda.spmm_csr_kernel
         k.launches += self.n
         for shape, n in self.shapes.items():
             k.shapes[shape] = k.shapes.get(shape, 0) + n
+        SeluDropout.launches += self.embedding
 
 
 def capture(fn: Callable[[], torch.Tensor], generator: Optional[torch.Generator] = None):
     """``fn()`` captured as a CUDA graph (its random numbers drawn from
     ``generator``); returns the graph, ``fn``'s output (a static buffer) and
-    the CSR launches the capture recorded, which are taken off the kernel's
+    the launches the capture recorded, which are taken off the kernels'
     counters again."""
     k = spmm_cuda.spmm_csr_kernel
-    n0, shapes0 = k.launches, dict(k.shapes)
+    n0, shapes0, e0 = k.launches, dict(k.shapes), SeluDropout.launches
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
@@ -63,10 +67,12 @@ def capture(fn: Callable[[], torch.Tensor], generator: Optional[torch.Generator]
             out = fn()
     finally:
         rec = Launches(k.launches - n0, {s: n - shapes0.get(s, 0) for s, n in k.shapes.items()
-                                         if n != shapes0.get(s, 0)})
+                                         if n != shapes0.get(s, 0)},
+                       SeluDropout.launches - e0)
         k.launches = n0
         k.shapes.clear()
         k.shapes.update(shapes0)
+        SeluDropout.launches = e0
     return graph, out, rec
 
 
