@@ -24,7 +24,9 @@ place of ``(x, x_hot)`` (``g_x = D @ g_hot``, ``g_xh = D^T @ g_out``). D
 gets no gradient: it is a constant block of the adjacency.
 
 A CPU tensor takes the plain PyTorch version of the same products; a CUDA
-tensor takes the kernel, which raises on failure.
+tensor takes the kernel, which raises on failure. Each product, on either
+path, is the span ``hybrid.dual`` (``train/profiling.py``): on the card one
+launch of the kernel with its prologue.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..train.profiling import span
 from .cuda_lib import CudaLibrary
 
 SPLIT, BF16, F32 = 0, 1, 2
@@ -234,11 +237,13 @@ fused_dual_kernel = FusedDualKernel()
 
 
 def _dual(variant: int, d, d_lo, x, xh, hot_t: bool):
-    """Kernel for CUDA tensors, plain version for CPU tensors; hot [K, H]."""
-    if x.device.type == "cpu":
-        return dual_reference(variant, d, d_lo, x, xh)
-    out, hot = fused_dual_kernel(variant, d, d_lo, x.contiguous(), xh.contiguous(), hot_t)
-    return out, (hot.t() if hot_t else hot)
+    """Kernel for CUDA tensors, plain version for CPU tensors; hot [K, H].
+    One span ``hybrid.dual`` around either."""
+    with span("hybrid.dual"):
+        if x.device.type == "cpu":
+            return dual_reference(variant, d, d_lo, x, xh)
+        out, hot = fused_dual_kernel(variant, d, d_lo, x.contiguous(), xh.contiguous(), hot_t)
+        return out, (hot.t() if hot_t else hot)
 
 
 class FusedDualFunction(torch.autograd.Function):

@@ -41,6 +41,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..train.profiling import stage
 from .fused_dual import fused_dual, fused_dual_split, split_bf16
 from .spmm_cuda import _COMPUTE_DTYPES, SpmmPlan, build_plan_from_arrays, spmm_plan
 
@@ -355,7 +356,9 @@ def build_hybrid_plan(
     (hi, lo) pair for the split dual kernel; 'highest' keeps f32 D.
     ``resid_mode``: the cold-cold residual on the CSR kernel ('pallas'), on
     the segment path ('segment'), or on the one the model prices lower
-    ('auto')."""
+    ('auto'). Once K is known the rest (hot set, symmetry audit, D and its
+    split, ``a_hh``, the residual's plans) is the stage
+    ``operator.hybrid_plan`` (``train/profiling.py``)."""
     if resid_mode not in RESID_MODES:
         raise ValueError(f"resid_mode must be one of {RESID_MODES}, got {resid_mode!r}")
     if compute_dtype not in _COMPUTE_DTYPES:
@@ -386,49 +389,50 @@ def build_hybrid_plan(
     k = max(1, k)
     device = torch.device(device)
 
-    hot_ids = hot_set(src, n_nodes, k)
-    hot_rank = np.full(n_nodes, -1, np.int64)
-    hot_rank[hot_ids] = np.arange(k)
-    src_hot = hot_rank[src] >= 0
-    dst_hot = hot_rank[dst] >= 0
-    try:
-        if validate == "fast":
-            check_weight_symmetric_fast(src, dst, w, n_nodes)
-        elif validate:
-            check_weight_symmetric(src, dst, w, sel=src_hot | dst_hot)
-    except ValueError:
-        if not auto:
-            raise
-        # under 'auto' a directed operator takes the sparse path, which is
-        # exact for it; an explicit K raises
-        warnings.warn("hybrid_k='auto': the adjacency is not weight-symmetric; "
-                      "falling back to the pure sparse SpMM path", stacklevel=2)
-        return None
+    with stage("operator.hybrid_plan"):
+        hot_ids = hot_set(src, n_nodes, k)
+        hot_rank = np.full(n_nodes, -1, np.int64)
+        hot_rank[hot_ids] = np.arange(k)
+        src_hot = hot_rank[src] >= 0
+        dst_hot = hot_rank[dst] >= 0
+        try:
+            if validate == "fast":
+                check_weight_symmetric_fast(src, dst, w, n_nodes)
+            elif validate:
+                check_weight_symmetric(src, dst, w, sel=src_hot | dst_hot)
+        except ValueError:
+            if not auto:
+                raise
+            # under 'auto' a directed operator takes the sparse path, which is
+            # exact for it; an explicit K raises
+            warnings.warn("hybrid_k='auto': the adjacency is not weight-symmetric; "
+                          "falling back to the pure sparse SpMM path", stacklevel=2)
+            return None
 
-    d_full, d_lo, a_hh = dense_blocks(src, dst, w, n_nodes, hot_ids, compute_dtype,
-                                      dense_split, device)
-    rsel = ~src_hot & ~dst_hot
-    n_resid = int(rsel.sum())
-    edge_ns = csr_edge_ns(h_hint)
-    use_csr = resid_mode == "pallas" or (
-        resid_mode == "auto" and _PAD_FACTOR * edge_ns < segment_edge_ns(h_hint))
-    res = seg = None
-    if n_resid and use_csr:
-        res = build_plan_from_arrays(src[rsel], dst[rsel], w[rsel], n_nodes,
-                                     compute_dtype=compute_dtype, device=device)
-    elif n_resid:
-        seg = segment_arrays(src[rsel], dst[rsel], w[rsel], device)
-    resid_units = n_resid * (_PAD_FACTOR if use_csr else segment_edge_ns(h_hint) / edge_ns)
-    predicted = _predict_cost_ns(n_nodes, len(src), resid_units, k, h_hint, itemsize,
-                                 d_reads=d_reads, dense_split=dense_split, edge_ns=edge_ns)
-    plan = HybridPlan(
-        hot_ids=torch.as_tensor(hot_ids, device=device), d_full=d_full, d_lo=d_lo,
-        a_hh=a_hh, res=res, n_nodes=n_nodes, k=k, compute_dtype=compute_dtype,
-        fused=bool(fused), n_resid=n_resid, predicted_spmm_ns=float(predicted),
-        **dict(zip(("seg_src", "seg_dst", "seg_w"), seg or (None, None, None))),
-    )
-    plan.floor_spmm_ns = plan_floor_ns(plan, h_hint)
-    return plan
+        d_full, d_lo, a_hh = dense_blocks(src, dst, w, n_nodes, hot_ids, compute_dtype,
+                                          dense_split, device)
+        rsel = ~src_hot & ~dst_hot
+        n_resid = int(rsel.sum())
+        edge_ns = csr_edge_ns(h_hint)
+        use_csr = resid_mode == "pallas" or (
+            resid_mode == "auto" and _PAD_FACTOR * edge_ns < segment_edge_ns(h_hint))
+        res = seg = None
+        if n_resid and use_csr:
+            res = build_plan_from_arrays(src[rsel], dst[rsel], w[rsel], n_nodes,
+                                         compute_dtype=compute_dtype, device=device)
+        elif n_resid:
+            seg = segment_arrays(src[rsel], dst[rsel], w[rsel], device)
+        resid_units = n_resid * (_PAD_FACTOR if use_csr else segment_edge_ns(h_hint) / edge_ns)
+        predicted = _predict_cost_ns(n_nodes, len(src), resid_units, k, h_hint, itemsize,
+                                     d_reads=d_reads, dense_split=dense_split, edge_ns=edge_ns)
+        plan = HybridPlan(
+            hot_ids=torch.as_tensor(hot_ids, device=device), d_full=d_full, d_lo=d_lo,
+            a_hh=a_hh, res=res, n_nodes=n_nodes, k=k, compute_dtype=compute_dtype,
+            fused=bool(fused), n_resid=n_resid, predicted_spmm_ns=float(predicted),
+            **dict(zip(("seg_src", "seg_dst", "seg_w"), seg or (None, None, None))),
+        )
+        plan.floor_spmm_ns = plan_floor_ns(plan, h_hint)
+        return plan
 
 
 def hot_set(src, n_nodes: int, k: int) -> np.ndarray:

@@ -4,7 +4,7 @@ opens them (``Trainer.fit``, ``fit_minibatch``, ``Text2Graph``,
 readers of them (``benchmark/metrics/``) on hand-built traces and stage
 records.
 
-The last two tests are marked ``gpu`` and skip without a card. On the card
+The last three tests are marked ``gpu`` and skip without a card. On the card
 (no JAX there, so tests/conftest.py is skipped and the marker registered on
 the command line):
 ``python -m pytest --noconftest -o "markers=gpu: needs a CUDA device"
@@ -297,6 +297,48 @@ def test_ensemble_makes_no_profiler_call_when_no_profiler_runs(graph, monkeypatc
     assert Ensemble.steps == steps + 2
 
 
+# --------------------------------------------------------------- the hybrid
+
+HOT_K = 16
+
+
+def _hybrid_trainer(g, device="cpu"):
+    """The hybrid at K = 16, split2 (the default f32 mode)."""
+    model = GCN(g.in_dim, 3, n_hidden_gcn=8, dropout=0.5,
+                generator=torch.Generator().manual_seed(2)).to(device)
+    return Trainer(model, lr=0.05, device=device, hybrid_k=HOT_K)
+
+
+def test_a_hybrid_fit_opens_six_dual_spans_an_epoch(graph, tmp_path):
+    """One ``hybrid.dual`` span a dual product: two forward, two in the
+    backward, two in the evaluation, each inside its epoch."""
+    trainer = _hybrid_trainer(graph)
+    trainer.fit(graph, epochs=1, n_classes=3)  # builds the operator
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.fit(graph, epochs=3, n_classes=3, eval_every=1)
+    events = _events(prof, tmp_path)
+    duals = _spans(events, "hybrid.dual")
+    epochs = _spans(events, "fit.epoch")
+    assert len(epochs) == 3 and len(duals) == 18
+    assert [sum(_inside(d, ep) for d in duals) for ep in epochs] == [6, 6, 6]
+
+
+def test_the_hybrid_operator_records_its_plan_stage_inside_the_csr_plan():
+    docs, labels = synthetic_corpus(n_docs=80, n_classes=3, seed=9)
+    g = Text2Graph(min_df=1, window_size=5).fit_transform(docs, labels)
+    t0 = time.perf_counter()
+    NormAdj.from_graph(g, use_pallas=True, device="cpu")
+    assert [r.name for r in _since(t0) if r.name.startswith("operator.")] == [
+        "operator.normalize", "operator.csr_plan", "operator.upload"]
+    t0 = time.perf_counter()
+    adj = NormAdj.from_graph(g, use_pallas=True, device="cpu", hybrid_k=HOT_K)
+    recs = [r for r in _since(t0) if r.name.startswith("operator.")]
+    assert [(r.name, r.parent) for r in recs] == [
+        ("operator.normalize", None), ("operator.hybrid_plan", "operator.csr_plan"),
+        ("operator.csr_plan", None), ("operator.upload", None)]
+    assert adj.plan.k == HOT_K and adj.plan.d_lo is not None
+
+
 # ----------------------------------------------------------------- readers
 
 
@@ -448,3 +490,37 @@ def test_the_ensemble_launches_four_csr_kernels_an_epoch(cuda, graph):
     assert k.launches - launches == 12
     assert {w: k.shapes.get((n, n, w), 0) - shapes.get((n, n, w), 0) for w in (16, 4)} == {
         16: 6, 4: 6}
+
+
+@pytest.mark.gpu
+def test_each_dual_span_holds_one_dual_kernel_launch(cuda, graph, tmp_path):
+    """The hybrid's fit on the card (eager: no graph replays): each
+    ``hybrid.dual`` span launches the split prologue and the dual kernel
+    once, and the kernel's counter rises by the spans' count."""
+    from pytextgcn_tpu_torch.ops import fused_dual
+
+    trainer = _hybrid_trainer(graph, cuda)
+    trainer.fit(graph, epochs=1, n_classes=3)  # builds the kernels and the operator
+    torch.cuda.synchronize()
+    launches = fused_dual.fused_dual_kernel.launches.get("split", 0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.fit(graph, epochs=3, n_classes=3)
+        torch.cuda.synchronize()
+    launches = fused_dual.fused_dual_kernel.launches.get("split", 0) - launches
+    events = _events(prof, tmp_path)
+    spans = _spans(events, "hybrid.dual")
+    assert len(spans) == launches == 18
+    kernels = sorted((ev for ev in events if ev.get("cat") == "kernel"
+                      and "fused_dual_bf16_kernel" in ev["name"]), key=lambda ev: ev["ts"])
+    assert len(kernels) == launches
+    # each span's kernel: by the correlation id of the runtime's launch
+    # inside it where the trace links them (one launch a span), else in order
+    by_corr = {ev["args"].get("correlation"): ev for ev in kernels}
+    runtime = [ev for ev in events if ev.get("cat") in ("cuda_runtime", "cuda_driver")
+               and "aunch" in ev["name"] and ev["args"].get("correlation") in by_corr]
+    for k, span in enumerate(spans):
+        linked = [by_corr[ev["args"]["correlation"]] for ev in runtime
+                  if ev["tid"] == span["tid"] and _inside(ev, span)]
+        assert len(linked) == (1 if runtime else 0), span
+        kernel = linked[0] if linked else kernels[k]
+        assert kernel["ts"] >= span["ts"], (k, span, kernel)
